@@ -1,0 +1,29 @@
+"""Run-length encoding of binary masks (``gapro_tpu/utils/rle.py``).
+
+The reference exporter's wire format: ``{"length": N, "counts": [start,
+length, ...]}`` with 1-based run starts. ``rle_encode_rows`` encodes a batch
+of masks where they lie: the runs are found on the device and only they
+cross to the host, not the [K, N] masks.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def rle_encode_rows(masks: torch.Tensor) -> list:
+    """[K, N] bool tensor -> K records ``{"length", "counts"}``, each equal
+    to the JAX package's ``rle_encode`` of its row (counts as int32, which
+    halves what crosses to the host)."""
+    k, n = masks.shape
+    if k == 0:
+        return []
+    padded = torch.nn.functional.pad(masks.to(torch.int8), (1, 1))
+    rows, cols = torch.nonzero(padded[:, 1:] != padded[:, :-1], as_tuple=True)
+    # Boundaries come in (start, end) pairs and every row holds whole pairs,
+    # so odd positions of the flat row-major list are ends: make them lengths.
+    counts = (cols + 1).int()
+    counts[1::2] -= counts[0::2]
+    ends = np.cumsum(torch.bincount(rows, minlength=k).cpu().numpy())
+    return [dict(length=int(n), counts=c) for c in np.split(counts.cpu().numpy(), ends[:-1])]

@@ -1,0 +1,42 @@
+"""The port imports no JAX, flax or ``gapro_tpu`` module, and its entry
+points refuse to fall back to the CPU when no card is present."""
+
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import gapro_tpu_torch
+from gapro_tpu_torch.models import isbnet, prepare
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax():
+    mods = sorted(m.name for m in pkgutil.walk_packages(gapro_tpu_torch.__path__,
+                                                        "gapro_tpu_torch."))
+    assert "gapro_tpu_torch.models.isbnet" in mods and "gapro_tpu_torch.convert" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', "
+        "'gapro_tpu')]\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        isbnet.ISBNet(isbnet.ISBNetConfig(channels=8, num_blocks=2))
+    pb = prepare.points_to_batch_np(
+        [dict(xyz=[[0.0, 0.0, 0.0]], rgb=[[0.0, 0.0, 0.0]], spp=[0])], n_cap=128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepare.upload_point_batch(pb)

@@ -1,4 +1,5 @@
-"""Weight bridge: a flax ISBNet variable tree -> the port's ``state_dict``.
+"""Weight bridge between a flax ISBNet variable tree and the port's
+``state_dict``, both ways.
 
 The tree comes as nested numpy dicts with the collections ``params`` and
 ``batch_stats``. Module names carry over unchanged except flax's auto-named
@@ -11,7 +12,9 @@ The tree comes as nested numpy dicts with the collections ``params`` and
   ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
 ``load_flax_variables`` loads strictly, so a missing, extra or misshapen
-entry raises.
+entry raises. ``to_flax_variables`` maps back, from the parameters and
+buffers of a model or from its parameters' ``.grad``, so the tests can hold
+gradients and updated weights against the JAX package leaf by leaf.
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ _LEAF = {
 
 def _module_name(name: str) -> str:
     return re.sub(r"^Dense_(\d+)$", r"dense\1", name)
+
+
+def _flax_module_name(name: str) -> str:
+    return re.sub(r"^dense(\d+)$", r"Dense_\1", name)
 
 
 def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
@@ -61,3 +68,31 @@ def load_flax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:
     """Load a flax variable tree into ``model`` (strict)."""
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
     return model
+
+
+def to_flax_variables(model: torch.nn.Module, grads: bool = False):
+    """The port's parameters and BatchNorm statistics as a flax tree of
+    nested numpy dicts (the inverse of ``flax_to_state_dict``). With
+    ``grads`` the tree holds each parameter's ``.grad`` (zeros where it is
+    None) and only the ``params`` collection."""
+    inv = {v: k for k, v in _LEAF.items()}
+    out: Dict[str, dict] = {"params": {}} if grads else {"params": {}, "batch_stats": {}}
+    named = list(model.named_parameters())
+    if not grads:
+        named += list(model.named_buffers())
+    for name, t in named:
+        *path, leaf = name.split(".")
+        if grads:
+            t = t.grad if t.grad is not None else torch.zeros_like(t)
+        arr = t.detach().cpu().numpy()
+        if leaf in ("kernel", "down_kernel", "up_kernel"):
+            coll, key = "params", leaf
+        elif leaf == "weight" and arr.ndim == 2:
+            coll, key, arr = "params", "kernel", arr.T
+        else:
+            coll, key = inv[leaf]
+        node = out[coll]
+        for p in path:
+            node = node.setdefault(_flax_module_name(p), {})
+        node[key] = np.ascontiguousarray(arr)
+    return out

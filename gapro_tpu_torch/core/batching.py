@@ -35,7 +35,14 @@ def flat_to_dense_index(batch_idx, valid, batch_size: int, n_max: int):
 
 
 def gather_dense(values, dense_idx, fill=0.0):
-    """values [N, ...] + dense_idx [B, M] -> [B, M, ...] (``fill`` for empty)."""
-    out = values[dense_idx.clamp(min=0).long()]
+    """values [N, ...] + dense_idx [B, M] -> [B, M, ...] (``fill`` for empty).
+
+    Empty slots read rows spread over ``values`` rather than row 0, and are
+    then masked: autograd's backward adds each slot's (zero) gradient into
+    the row it read, and on the card the slots of one row are added one
+    after another."""
+    spread = torch.arange(dense_idx.numel(), device=dense_idx.device).reshape(
+        dense_idx.shape) % values.shape[0]
+    out = values[torch.where(dense_idx >= 0, dense_idx.long(), spread)]
     mask = (dense_idx >= 0).reshape(dense_idx.shape + (1,) * (out.ndim - dense_idx.ndim))
     return torch.where(mask, out, torch.as_tensor(fill, dtype=out.dtype, device=out.device))

@@ -18,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("subm_conv", "fps")
+SOURCES = ("subm_conv", "subm_conv_dw", "fps")
 
 # fps.cu must round every multiply and add on its own, as the plain version
 # and the JAX package do: a contracted FMA flips near-tied argmaxes.

@@ -2,7 +2,9 @@
 
 FPS -> ball-query neighbourhoods -> [rel-xyz, rel-box-dims, feats] ->
 SharedMLP + max-pool, twice -> bottleneck MLP + skip. Dense [B, N, ...]
-layout with validity masks throughout.
+layout with validity masks throughout. The max-pools are ``amax``, which
+splits the gradient evenly among ties as JAX's ``max`` does: the ball query
+repeats its first hit in empty slots, so ties are exact.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from torch import nn
 
 from ..ops import fps as fps_ops
 from ..ops.ballquery import ball_query
-from .common import ConvBlock1d, SharedMLP
+from .common import ConvBlock1d, SharedMLP, jabs
 
 
 class AggregatorOutput(NamedTuple):
@@ -71,7 +73,7 @@ class LocalAggregator(nn.Module):
 
         nbr, _ = ball_query(fps_locs, locs, s_valid, valid, self.radius, self.n_neighbor)
         g_xyz = (_group(locs, nbr) - fps_locs[:, :, None, :]) / self.radius
-        g_dim = torch.abs(_group(dim_boxes, nbr) - fps_dims[:, :, None, :])
+        g_dim = jabs(_group(dim_boxes, nbr) - fps_dims[:, :, None, :])
         g_feat = torch.cat([g_xyz, g_dim, _group(feats, nbr)], -1)
         x = self.mlp1(g_feat, valid=s_valid[:, :, None]).amax(2)
         identity = x
@@ -79,7 +81,7 @@ class LocalAggregator(nn.Module):
         r2 = 2 * self.radius
         nbr2, _ = ball_query(fps_locs, fps_locs, s_valid, s_valid, r2, self.n_neighbor_post)
         g2_xyz = (_group(fps_locs, nbr2) - fps_locs[:, :, None, :]) / r2
-        g2_dim = torch.abs(_group(fps_dims, nbr2) - fps_dims[:, :, None, :])
+        g2_dim = jabs(_group(fps_dims, nbr2) - fps_dims[:, :, None, :])
         g2_feat = torch.cat([g2_xyz, g2_dim, _group(x, nbr2)], -1)
         y = self.mlp2(g2_feat, valid=s_valid[:, :, None]).amax(2)
 

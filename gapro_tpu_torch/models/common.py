@@ -1,12 +1,16 @@
 """Shared building blocks (``gapro_tpu/models/common.py``).
 
-* ``BatchNorm``: flax ``nn.BatchNorm`` in eval mode,
-  ``(x - mean) * (scale * rsqrt(var + eps)) + bias``, over the last axis.
-  Only inference is ported: training-mode batch statistics wait for the
-  training slice, so a module in training mode raises.
+* ``BatchNorm``: flax ``nn.BatchNorm`` (momentum 0.9) over the last axis,
+  ``(x - mean) * (scale * rsqrt(var + eps)) + bias``. In eval mode it reads
+  the running statistics; in training mode it takes the batch statistics
+  over the rows ``mask`` selects and updates the running ones (see
+  ``BatchNorm.forward``).
 * ``MLP`` (eps 1e-4), ``GenericMLP``, ``SharedMLP`` and ``ConvBlock1d``
-  (eps 1e-5), with the JAX package's masking: rows outside ``valid`` come
-  out as 0.
+  (eps 1e-5), with the JAX package's masking: every BatchNorm takes its
+  statistics over the ``valid`` rows, and rows outside ``valid`` come out
+  as 0.
+* ``jabs`` and ``jmax0``: ``abs`` and ``max(x, 0)`` with JAX's gradient at
+  0, where PyTorch's differs.
 
 Module and attribute names follow the flax tree (``bn0``, ``bn_out``; flax's
 auto-named ``Dense_i`` is ``dense{i}`` here), so ``convert.py`` maps the
@@ -21,7 +25,35 @@ import torch
 from torch import nn
 
 
+def jabs(x):
+    """``abs`` with ``jnp.abs``'s gradient: +1 at 0, where ``torch.abs``
+    gives 0. A point's distance to itself is exactly 0 in the aggregator."""
+    return torch.where(x >= 0, x, -x)
+
+
+def jmax0(x):
+    """``max(x, 0)`` with ``jnp.maximum``'s gradient: half to each side on a
+    tie, where ``torch.clamp`` passes all of it."""
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def mask_of(x, valid):
+    """``valid`` reshaped to broadcast over the trailing axes of ``x``."""
+    if valid is None:
+        return None
+    return valid.reshape(valid.shape + (1,) * (x.ndim - valid.ndim))
+
+
+def masked(x, valid):
+    """Zero the rows of ``x`` outside ``valid`` (broadcast over trailing axes)."""
+    if valid is None:
+        return x
+    return torch.where(mask_of(x, valid), x, 0.0)
+
+
 class BatchNorm(nn.Module):
+    MOMENTUM = 0.9  # flax's convention: ra = 0.9 * ra + 0.1 * batch statistic
+
     def __init__(self, num_features: int, eps: float):
         super().__init__()
         self.eps = eps
@@ -30,18 +62,32 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x):
-        if self.training:
-            raise RuntimeError("only eval-mode BatchNorm is ported; call .eval()")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
-
-
-def masked(x, valid):
-    """Zero the rows of ``x`` outside ``valid`` (broadcast over trailing axes)."""
-    if valid is None:
-        return x
-    return torch.where(valid.reshape(valid.shape + (1,) * (x.ndim - valid.ndim)), x, 0.0)
+    def forward(self, x, mask=None):
+        """Normalise over the last axis. In training mode the statistics are
+        flax's ``_compute_stats``: the mean and ``max(0, E[x^2] - E[x]^2)``
+        (biased) over the entries ``mask`` (broadcast to ``x``) selects, so
+        a row repeated in ``x`` counts as often as it appears; gradients
+        flow through both. The running statistics then move once, outside
+        the graph. ``torch.nn.functional.batch_norm`` can neither mask nor
+        take this variance."""
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.ndim - 1))
+            if mask is None:
+                mean, mean2 = x.mean(axes), (x * x).mean(axes)
+            else:
+                m = mask.expand_as(x)
+                cnt = m.sum(axes).to(x.dtype)
+                mean = torch.where(m, x, 0.0).sum(axes) / cnt
+                mean2 = torch.where(m, x * x, 0.0).sum(axes) / cnt
+            var = jmax0(mean2 - mean * mean)
+            with torch.no_grad():
+                mom = self.MOMENTUM
+                self.running_mean.copy_(mom * self.running_mean + (1 - mom) * mean)
+                self.running_var.copy_(mom * self.running_var + (1 - mom) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class MLP(nn.Module):
@@ -56,8 +102,9 @@ class MLP(nn.Module):
         setattr(self, f"dense{num_layers - 1}", nn.Linear(in_dim, out_dim))
 
     def forward(self, x, valid=None):
+        mask = mask_of(x, valid)
         for i in range(self.num_layers - 1):
-            x = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x)))
+            x = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x), mask))
         return masked(getattr(self, f"dense{self.num_layers - 1}")(x), valid)
 
 
@@ -79,14 +126,15 @@ class GenericMLP(nn.Module):
         self.bn_out = BatchNorm(out_dim, 1e-5) if output_use_norm else None
 
     def forward(self, x, valid=None):
+        mask = mask_of(x, valid)
         for i in range(self.n_hidden):
             x = getattr(self, f"dense{i}")(x)
             if self.use_norm:
-                x = getattr(self, f"bn{i}")(x)
+                x = getattr(self, f"bn{i}")(x, mask)
             x = torch.relu(x)
         x = getattr(self, f"dense{self.n_hidden}")(x)
         if self.bn_out is not None:
-            x = self.bn_out(x)
+            x = self.bn_out(x, mask)
         if self.output_use_activation:
             x = torch.relu(x)
         return masked(x, valid)
@@ -106,8 +154,9 @@ class SharedMLP(nn.Module):
             d = o
 
     def forward(self, x, valid=None):
+        mask = mask_of(x, valid)
         for i in range(self.n):
-            x = getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x))
+            x = getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x), mask)
             if i < self.n - 1 or self.final_activation:
                 x = torch.relu(x)
         return masked(x, valid)
@@ -123,7 +172,7 @@ class ConvBlock1d(nn.Module):
         self.bn = BatchNorm(out_dim, 1e-5)
 
     def forward(self, x, valid=None):
-        x = self.bn(self.dense0(x))
+        x = self.bn(self.dense0(x), mask_of(x, valid))
         if self.activation:
             x = torch.relu(x)
         return masked(x, valid)

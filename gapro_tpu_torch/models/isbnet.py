@@ -1,4 +1,4 @@
-"""ISBNet inference (``gapro_tpu/models/isbnet.py``).
+"""ISBNet (``gapro_tpu/models/isbnet.py``).
 
 Sparse U-Net backbone -> point-wise heads (semantics, box-corner offsets,
 box confidence) -> background filter on superpoint-pooled semantics -> two
@@ -7,8 +7,14 @@ local aggregators producing instance queries -> query heads and controller
 validity masks as in the JAX package; every ``ovf_*`` counter stays in the
 output.
 
-Only eval-mode inference is ported: ``trunk``, ``forward`` and
-``forward_inference`` (iterative sampling with visited-superpoint masking).
+``forward`` is the JAX module's ``__call__``: the one-shot pass that the
+training step differentiates (``model.train()``; BatchNorm takes batch
+statistics) and that runs without a graph in eval mode.
+``forward_inference`` is iterative sampling with visited-superpoint masking.
+``cfg.fixed_modules`` freezes modules as the JAX package does: a frozen
+backbone or point-wise head stays in eval mode under ``model.train()`` and
+its output is detached; ``train/state.py`` leaves every frozen module out of
+the optimizer. ``semantic_only`` (backbone pre-training) is not ported yet.
 """
 
 from __future__ import annotations
@@ -45,8 +51,21 @@ class ISBNetConfig:
     radius_scale: float = 1.0
     neighbor: int = 32
     filter_bg_thresh: float = 0.1
+    # reference names (input_conv / unet / output_layer are all ``backbone``)
+    # or the model's own module names; see ``train/state.py``
+    fixed_modules: tuple = ()
     spp_cap: int = 4096
     fg_cap_ratio: float = 1.0
+
+
+# Modules whose output the JAX model gates when frozen, with the names that
+# freeze each (``ISBNet._frozen`` in the JAX package).
+_GATED = {
+    "backbone": ("backbone", "input_conv", "unet", "output_layer"),
+    "semantic_linear": ("semantic_linear",),
+    "offset_vertices_linear": ("offset_vertices_linear", "offset_linear"),
+    "box_conf_linear": ("box_conf_linear",),
+}
 
 
 @dataclass
@@ -110,10 +129,28 @@ class ISBNet(nn.Module):
 
     # ------------------------------------------------------------------ #
 
+    def _frozen(self, name: str) -> bool:
+        return bool(set(self.cfg.fixed_modules) & set(_GATED[name]))
+
+    def _gated(self, name: str, *args):
+        """Run module ``name``; a frozen one's output is detached (it runs in
+        eval mode, see ``train``)."""
+        out = getattr(self, name)(*args)
+        return out.detach() if self._frozen(name) else out
+
+    def train(self, mode: bool = True):
+        """As ``nn.Module.train``, but frozen gated modules stay in eval mode,
+        so their BatchNorms neither use batch statistics nor update."""
+        super().train(mode)
+        for name in _GATED:
+            if self._frozen(name):
+                getattr(self, name).eval()
+        return self
+
     def pointwise_head(self, feats, valid):
-        sem = self.semantic_linear(feats, valid)
-        corners = self.offset_vertices_linear(feats, valid)
-        conf = self.box_conf_linear(feats, valid)[..., 0]
+        sem = self._gated("semantic_linear", feats, valid)
+        corners = self._gated("offset_vertices_linear", feats, valid)
+        conf = self._gated("box_conf_linear", feats, valid)[..., 0]
         return sem, corners, conf
 
     def run_mask_tower(self, x, valid):
@@ -165,7 +202,7 @@ class ISBNet(nn.Module):
         in_feats = batch.feats
         if cfg.with_coords:
             in_feats = torch.cat([in_feats, batch.coords_float], 1)
-        feats = self.backbone(in_feats, batch.plan)  # [V, C]
+        feats = self._gated("backbone", in_feats, batch.plan)  # [V, C]
         sem_scores, corners_offset, box_conf = self.pointwise_head(feats, batch.valid)
         box_preds = corners_offset + batch.coords_float.repeat(1, 2)
         out: Dict[str, object] = dict(semantic_scores=sem_scores, corners_offset=corners_offset,
@@ -219,16 +256,18 @@ class ISBNet(nn.Module):
         )
         return out, mid
 
-    @torch.no_grad()
     def forward(self, batch: VoxelBatch) -> Dict[str, object]:
-        """One-shot forward: stage-2 aggregator over the stage-1 samples."""
-        out, mid = self.trunk(batch)
-        agg1 = mid["agg1"]
-        agg2 = self.point_aggregator2(agg1.locs, agg1.feats, agg1.boxes, agg1.valid,
-                                      sampled_before=True)
-        cls_logits, conf_logits, query_box_preds, mask_logits = self.run_queries(
-            agg2, mid["d_sp_mask_feats"], mid["d_sp_coords"], mid["d_sp_boxes"],
-            out["sp_dense_valid"])
+        """One-shot forward: the stage-2 aggregator over the stage-1 samples
+        (``sampled_before``), as in training. It records a graph only in
+        training mode; in eval mode it runs under ``no_grad``."""
+        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+            out, mid = self.trunk(batch)
+            agg1 = mid["agg1"]
+            agg2 = self.point_aggregator2(agg1.locs, agg1.feats, agg1.boxes, agg1.valid,
+                                          sampled_before=True)
+            cls_logits, conf_logits, query_box_preds, mask_logits = self.run_queries(
+                agg2, mid["d_sp_mask_feats"], mid["d_sp_coords"], mid["d_sp_boxes"],
+                out["sp_dense_valid"])
         out.update(cls_logits=cls_logits, conf_logits=conf_logits,
                    query_box_preds=query_box_preds, query_valid=agg2.valid,
                    mask_logits=mask_logits)

@@ -6,6 +6,19 @@
 * ``subm_conv_cuda``: K1's wrapper. For a CPU tensor it takes ``subm_conv``;
   for a CUDA tensor it launches the kernel or raises. It counts its launches
   in ``subm_conv_cuda.launches``.
+* ``SubmConvFn``: the conv as a ``torch.autograd.Function`` whose backward
+  mirrors ``_window_conv_bwd`` (``gapro_tpu/sparse/window_conv.py``), the
+  TPU's backward kernels K2 and K3, with the incoming gradient masked to
+  valid rows:
+
+  - ``dfeats = subm_conv(dout, nbr, w_rev)`` with ``w_rev[k] = W[26 - k]^T``
+    (``nbr[i, k] = j`` exactly when ``nbr[j, 26 - k] = i``). On the card
+    this is K1 again, through ``subm_conv_dfeats_cuda``;
+  - ``dW[k] = sum_i feats[nbr[i, k]]^T dout[i]``: ``subm_conv_dw`` plain,
+    ``subm_conv_dw_cuda`` the kernel ``csrc/subm_conv_dw.cu``.
+
+  It saves only ``feats``, ``weights``, the table and ``valid``, never the
+  [V, 27 * Cin] gather.
 * ``down_conv`` / ``inverse_conv``: the stride-2 kernel-2 pair sharing one
   rulebook. The JAX package computes them outside any Pallas kernel, and so
   does the port.
@@ -19,6 +32,27 @@ import torch
 
 from .. import cuda_build
 
+# A missing entry (-1) reads one of this many zero rows appended to the
+# table. Autograd's backward of a row gather adds each entry's gradient into
+# the row it read, and on the card the entries of one row are added one
+# after another: one shared zero row would serialise every missing entry
+# (most of the [Vc, 8] child table, a fifth of the voxel capacity).
+_ZERO_ROWS = 1024
+
+
+def _zero_padded(feats):
+    return torch.cat([feats, feats.new_zeros((_ZERO_ROWS, feats.shape[1]))], 0)
+
+
+def _padded_index(idx, v: int):
+    spread = torch.arange(idx.numel(), device=idx.device).reshape(idx.shape) % _ZERO_ROWS
+    return torch.where(idx >= 0, idx.long(), v + spread)
+
+
+def gather_rows(feats, idx):
+    """feats [V, C], int idx [...] (-1 missing) -> [..., C], zeros for -1."""
+    return _zero_padded(feats)[_padded_index(idx, feats.shape[0])]
+
 
 def subm_conv(feats, nbr_idx, weights, valid):
     """Plain version of K1.
@@ -28,34 +62,72 @@ def subm_conv(feats, nbr_idx, weights, valid):
     """
     v, cin = feats.shape
     k, _, cout = weights.shape
-    table = torch.cat([feats, feats.new_zeros((1, cin))], 0)  # row v = zeros
-    idx = torch.where(nbr_idx >= 0, nbr_idx, v).long()
-    g = table[idx.reshape(-1)].reshape(v, k * cin)
-    out = g @ weights.reshape(k * cin, cout)
+    out = gather_rows(feats, nbr_idx).reshape(v, k * cin) @ weights.reshape(k * cin, cout)
     return torch.where(valid[:, None], out, 0.0)
 
 
-def _check_cuda_args(feats, nbr_idx, weights, valid):
-    v, cin = feats.shape
-    if weights.dim() != 3 or weights.shape[:2] != (27, cin):
-        raise ValueError(f"weights must be [27, {cin}, Cout], got {tuple(weights.shape)}")
-    if nbr_idx.shape != (v, 27) or valid.shape != (v,):
+def subm_conv_dw(feats, nbr_idx, dout):
+    """Plain version of the dW kernel: ``dW[k] = sum_i feats[nbr[i, k]]^T
+    dout[i]`` -> [27, Cin, Cout]. One offset at a time, so that only one
+    [V, Cin] gather is held."""
+    table, idx = _zero_padded(feats), _padded_index(nbr_idx, feats.shape[0])
+    return torch.stack([table[idx[:, k]].T @ dout for k in range(nbr_idx.shape[1])])
+
+
+def _check_args(named, like, nbr_idx, valid=None):
+    """Raise unless every tensor in ``named`` is fp32, the table int32 and
+    ``valid`` bool, all contiguous on ``like``'s device, with V rows."""
+    v = like.shape[0]
+    if nbr_idx.shape != (v, 27) or (valid is not None and valid.shape != (v,)):
         raise ValueError(f"nbr_idx must be [{v}, 27] and valid [{v}], got "
-                         f"{tuple(nbr_idx.shape)} and {tuple(valid.shape)}")
-    for name, t, dt in (("feats", feats, torch.float32), ("nbr_idx", nbr_idx, torch.int32),
-                        ("weights", weights, torch.float32), ("valid", valid, torch.bool)):
+                         f"{tuple(nbr_idx.shape)} and "
+                         f"{None if valid is None else tuple(valid.shape)}")
+    checks = [(name, t, torch.float32) for name, t in named]
+    checks.append(("nbr_idx", nbr_idx, torch.int32))
+    if valid is not None:
+        checks.append(("valid", valid, torch.bool))
+    for name, t, dt in checks:
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if t.device != feats.device:
-            raise ValueError(f"{name} is on {t.device}, feats on {feats.device}")
+        if t.device != like.device:
+            raise ValueError(f"{name} is on {t.device}, not on {like.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_cuda_args(feats, nbr_idx, weights, valid):
+    cin = feats.shape[1]
+    if weights.dim() != 3 or weights.shape[:2] != (27, cin):
+        raise ValueError(f"weights must be [27, {cin}, Cout], got {tuple(weights.shape)}")
+    _check_args((("feats", feats), ("weights", weights)), feats, nbr_idx, valid)
 
 
 def subm_conv_cuda(feats, nbr_idx, weights, valid):
     """K1: ``subm_conv`` as a hand-written CUDA kernel (fp32)."""
     if feats.device.type == "cpu":
         return subm_conv(feats, nbr_idx, weights, valid)
+    out = _launch_k1(feats, nbr_idx, weights, valid)
+    subm_conv_cuda.launches += 1
+    return out
+
+
+subm_conv_cuda.launches = 0
+
+
+def subm_conv_dfeats_cuda(dout, nbr_idx, w_rev, valid):
+    """The dfeats half of the backward: K1 on (dout, nbr, w_rev), counted in
+    ``subm_conv_dfeats_cuda.launches`` apart from the forward's launches."""
+    if dout.device.type == "cpu":
+        return subm_conv(dout, nbr_idx, w_rev, valid)
+    out = _launch_k1(dout, nbr_idx, w_rev, valid)
+    subm_conv_dfeats_cuda.launches += 1
+    return out
+
+
+subm_conv_dfeats_cuda.launches = 0
+
+
+def _launch_k1(feats, nbr_idx, weights, valid):
     _check_cuda_args(feats, nbr_idx, weights, valid)
     v, cin = feats.shape
     cout = weights.shape[2]
@@ -77,28 +149,77 @@ def subm_conv_cuda(feats, nbr_idx, weights, valid):
                  out.data_ptr(), 0 if partial is None else partial.data_ptr(), v, cin, cout,
                  splits, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "subm_conv_cuda")
-    subm_conv_cuda.launches += 1
     return out
 
 
-subm_conv_cuda.launches = 0
+def subm_conv_dw_cuda(feats, nbr_idx, dout):
+    """dW kernel (``csrc/subm_conv_dw.cu``, fp32): ``subm_conv_dw`` on the
+    card, deterministic. Counts its launches in ``subm_conv_dw_cuda.launches``."""
+    if feats.device.type == "cpu":
+        return subm_conv_dw(feats, nbr_idx, dout)
+    _check_args((("feats", feats), ("dout", dout)), feats, nbr_idx)
+    v, cin = feats.shape
+    cout = dout.shape[1]
+    lib = cuda_build.load("subm_conv_dw")
+    lib.gapro_subm_conv_dw_splits.argtypes = [ctypes.c_int] * 3
+    lib.gapro_subm_conv_dw_splits.restype = ctypes.c_int
+    fn = lib.gapro_subm_conv_dw
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(feats.device):
+        splits = lib.gapro_subm_conv_dw_splits(v, cin, cout)
+        if splits < 1:
+            raise RuntimeError("subm_conv_dw_cuda: the device query failed")
+        dw = torch.empty((27, cin, cout), dtype=torch.float32, device=feats.device)
+        # per-split partial dW of the levels with many rows (see csrc/subm_conv_dw.cu)
+        partial = (torch.empty((splits, 27, cin, cout), dtype=torch.float32,
+                               device=feats.device) if splits > 1 else None)
+        err = fn(feats.data_ptr(), nbr_idx.data_ptr(), dout.data_ptr(), dw.data_ptr(),
+                 0 if partial is None else partial.data_ptr(), v, cin, cout, splits,
+                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "subm_conv_dw_cuda")
+    subm_conv_dw_cuda.launches += 1
+    return dw
+
+
+subm_conv_dw_cuda.launches = 0
+
+
+class SubmConvFn(torch.autograd.Function):
+    """``subm_conv`` with the backward of ``_window_conv_bwd``. The wrappers
+    are looked up at call time, so a caller may swap in the plain versions."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, nbr_idx, valid):
+        ctx.save_for_backward(feats, weights, nbr_idx, valid)
+        return subm_conv_cuda(feats, nbr_idx, weights, valid)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, weights, nbr_idx, valid = ctx.saved_tensors
+        dout = torch.where(valid[:, None], dout, 0.0).contiguous()
+        dfeats = dw = None
+        if ctx.needs_input_grad[0]:
+            w_rev = weights.flip(0).transpose(1, 2).contiguous()  # [27, Cout, Cin]
+            dfeats = subm_conv_dfeats_cuda(dout, nbr_idx, w_rev, valid)
+        if ctx.needs_input_grad[1]:
+            dw = subm_conv_dw_cuda(feats, nbr_idx, dout)
+        return dfeats, dw, None, None
 
 
 def subm_conv_auto(feats, level_plan, weights):
     """The subm conv of one U-Net level: K1 on every level (the TPU's
-    8192-capacity floor existed only for its window tables)."""
-    return subm_conv_cuda(feats.contiguous(), level_plan.subm_nbr, weights.contiguous(),
-                          level_plan.grid.valid)
+    8192-capacity floor existed only for its window tables), with the
+    backward of ``SubmConvFn``."""
+    return SubmConvFn.apply(feats.contiguous(), weights.contiguous(), level_plan.subm_nbr,
+                            level_plan.grid.valid)
 
 
 def down_conv(feats, child_idx, weights, out_valid=None):
     """Stride-2 kernel-2 conv: out[p] = sum_kk feats[child_idx[p, kk]] @ W[kk]."""
-    v, cin = feats.shape
-    k, _, cout = weights.shape
-    table = torch.cat([feats, feats.new_zeros((1, cin))], 0)
-    idx = torch.where(child_idx >= 0, child_idx, v).long()
+    k, cin, cout = weights.shape
     vc = child_idx.shape[0]
-    out = table[idx.reshape(-1)].reshape(vc, k * cin) @ weights.reshape(k * cin, cout)
+    out = gather_rows(feats, child_idx).reshape(vc, k * cin) @ weights.reshape(k * cin, cout)
     if out_valid is not None:
         out = torch.where(out_valid[:, None], out, 0.0)
     return out
@@ -107,8 +228,7 @@ def down_conv(feats, child_idx, weights, out_valid=None):
 def inverse_conv(coarse_feats, parent, offset_id, weights, valid):
     """Transpose of ``down_conv`` on the shared rulebook:
     fine[i] = coarse[parent(i)] @ W[offset(i)]."""
-    gathered = coarse_feats[parent.clamp(min=0).long()]
-    gathered = torch.where((parent >= 0)[:, None], gathered, 0.0)
+    gathered = gather_rows(coarse_feats, parent)
     out = None
     for kk in range(8):
         sel = (offset_id == kk)[:, None]

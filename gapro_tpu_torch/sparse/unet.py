@@ -3,7 +3,8 @@
 A SubMConv stem, then a recursive UBlock: per level two pre-activation
 residual blocks, a stride-2 down conv, the next level, an inverse conv, the
 skip concat and two tail residual blocks; channels c, 2c, ..., 7c. BatchNorm
-eps 1e-4, eval mode. Every conv reads the precomputed ``UNetPlan``. Kernels
+eps 1e-4; in training mode each takes its statistics over the valid voxels
+of its own level. Every conv reads the precomputed ``UNetPlan``. Kernels
 keep the JAX layout: SubMConv [27, Cin, Cout], down/up [8, Cin, Cout].
 """
 
@@ -52,9 +53,10 @@ class ResidualBlock(nn.Module):
 
     def forward(self, feats, level_plan):
         valid = level_plan.grid.valid
+        mask = valid[:, None]
         identity = feats if self.i_branch is None else self.i_branch(feats, valid)
-        x = self.conv0(torch.relu(self.bn0(feats)), level_plan)
-        x = self.conv1(torch.relu(self.bn1(x)), level_plan)
+        x = self.conv0(torch.relu(self.bn0(feats, mask)), level_plan)
+        x = self.conv1(torch.relu(self.bn1(x, mask)), level_plan)
         return x + identity
 
 
@@ -83,10 +85,10 @@ class UBlock(nn.Module):
         if not self.deeper:
             return x
         nxt = plan.levels[level + 1]
-        y = torch.relu(self.conv_bn(x))
+        y = torch.relu(self.conv_bn(x, lp.grid.valid[:, None]))
         y = down_conv(y, lp.down_child, self.down_kernel, out_valid=nxt.grid.valid)
         y = self.u(y, plan, level + 1)
-        y = torch.relu(self.deconv_bn(y))
+        y = torch.relu(self.deconv_bn(y, nxt.grid.valid[:, None]))
         y = inverse_conv(y, lp.parent, lp.offset_id, self.up_kernel, lp.grid.valid)
         x = torch.cat([x, y], 1)
         for i in range(self.block_reps):
@@ -108,5 +110,5 @@ class SparseUNetBackbone(nn.Module):
         valid = plan.levels[0].grid.valid
         x = self.input_conv(feats, plan.levels[0])
         x = self.unet(x, plan, 0)
-        x = torch.relu(self.output_bn(x))
+        x = torch.relu(self.output_bn(x, valid[:, None]))
         return torch.where(valid[:, None], x, 0.0)

@@ -19,7 +19,9 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_port_imports_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(gapro_tpu_torch.__path__,
                                                         "gapro_tpu_torch."))
-    assert "gapro_tpu_torch.models.isbnet" in mods and "gapro_tpu_torch.convert" in mods
+    assert {"gapro_tpu_torch.models.isbnet", "gapro_tpu_torch.convert",
+            "gapro_tpu_torch.losses.criterion", "gapro_tpu_torch.losses.matcher",
+            "gapro_tpu_torch.train.state", "gapro_tpu_torch.train.step"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -49,12 +49,19 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
     w = torch.randn(27, 6, 32, generator=g)
     xyz = torch.randn(2, 300, 3, generator=g)
     valid = torch.rand(2, 300, generator=g) > 0.3
-    before = (conv.subm_conv_cuda.launches, fps_ops.fps_cuda.launches)
+    dout = torch.randn(CAP, 32, generator=g)
+    w_rev = w.flip(0).transpose(1, 2).contiguous()
+    counts = lambda: (conv.subm_conv_cuda.launches, conv.subm_conv_dfeats_cuda.launches,
+                      conv.subm_conv_dw_cuda.launches, fps_ops.fps_cuda.launches)
+    before = counts()
     assert torch.equal(conv.subm_conv_cuda(feats, nbr, w, grid.valid),
                        conv.subm_conv(feats, nbr, w, grid.valid))
+    assert torch.equal(conv.subm_conv_dfeats_cuda(dout, nbr, w_rev, grid.valid),
+                       conv.subm_conv(dout, nbr, w_rev, grid.valid))
+    assert torch.equal(conv.subm_conv_dw_cuda(feats, nbr, dout), conv.subm_conv_dw(feats, nbr, dout))
     got, want = fps_ops.fps(xyz, valid, 32), fps_ops.fps_masked(xyz, valid, 32)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert (conv.subm_conv_cuda.launches, fps_ops.fps_cuda.launches) == before
+    assert counts() == before
 
 
 @pytest.mark.gpu
@@ -74,6 +81,39 @@ def test_subm_conv_cuda_matches_plain(cuda_device, cin, cout):
     want = conv.subm_conv(feats, nbr, w, grid.valid)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert (got[~grid.valid] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout", [(6, 32), (32, 32), (96, 64), (384, 192)])
+def test_subm_conv_dw_cuda_matches_plain(cuda_device, cin, cout):
+    """The dW kernel against the plain per-offset version (fp32; rtol =
+    atol = 1e-4 of the output's scale, another summation order over up to
+    V rows), bit-identical across two launches; and the backward of
+    ``SubmConvFn`` on the card (dfeats by K1 on the reversed weights, dW by
+    the kernel) against autograd of the plain forward."""
+    grid = _grid(cuda_device)
+    nbr = subm_neighbor_table(grid)
+    g = torch.Generator().manual_seed(cin + cout)
+    feats = (torch.randn(CAP, cin, generator=g).to(cuda_device) * grid.valid[:, None]).contiguous()
+    dout = (torch.randn(CAP, cout, generator=g).to(cuda_device) * grid.valid[:, None]).contiguous()
+    before = conv.subm_conv_dw_cuda.launches
+    got = conv.subm_conv_dw_cuda(feats, nbr, dout)
+    again = conv.subm_conv_dw_cuda(feats, nbr, dout)
+    torch.cuda.synchronize()
+    assert conv.subm_conv_dw_cuda.launches == before + 2
+    want = conv.subm_conv_dw(feats, nbr, dout)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    assert torch.equal(got, again)
+
+    w = torch.randn(27, cin, cout, generator=g).to(cuda_device)
+    tf, tw = feats.clone().requires_grad_(), w.clone().requires_grad_()
+    (conv.SubmConvFn.apply(tf, tw, nbr, grid.valid) * dout).sum().backward()
+    pf, pw = feats.clone().requires_grad_(), w.clone().requires_grad_()
+    (conv.subm_conv(pf, nbr, pw, grid.valid) * dout).sum().backward()
+    for a, b in ((tf.grad, pf.grad), (tw.grad, pw.grad)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+    assert (tf.grad[~grid.valid] == 0).all()
 
 
 @pytest.mark.gpu

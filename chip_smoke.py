@@ -8,8 +8,10 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
 1. kernel phase: runs each kernel against its plain PyTorch version on the
    card at the shapes the full-width ISBNet gives it (K1, the submanifold
    conv, at every level capacity and channel pair; K4, FPS, at N = 262144 ->
-   2048 and N = 2048 -> 192 / 128 / 64), and times kernel, plain version and
-   bound;
+   2048 and N = 2048 -> 192 / 128 / 64; K5, the dynamic-conv mask head, at
+   (B, Q, S) = (4, 256, 4096), (1, 256, 4096), (1, 192 / 128 / 64, 4096)
+   and (1, 12, 130), and its recompute backward at the first), and times
+   kernel, plain version and bound;
 2. backward-kernel phase: at the same 14 conv shapes, the conv's backward
    on the card (dfeats by K1 on the reversed weights, dW by
    ``subm_conv_dw.cu``) against ``torch.autograd.grad`` of the plain conv,
@@ -33,7 +35,19 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
    run's assignment injected;
 8. where the time goes: one request with its layer calls timed, and one
    request and (after phase 6) one training step under torch.profiler
-   (device time by kernel, the card's busy share of the wall time).
+   (device time by kernel, the card's busy share of the wall time);
+9. the trainer: the port's train loop (gapro_tpu_torch/tools/train.py) at
+   full width and the config's batch 4, 16 scenes with seeded GP labels
+   from forked data workers: one cold step, three steps timed by stage
+   with the counts zeroed just before and read just after, validation by
+   AP on 2 scenes, and a resume from the checkpoint it wrote, equal bit for
+   bit;
+10. plain comparison at batch 4: one step's losses, kernels against plain
+    versions, with the kernel run's assignment injected;
+11. the test CLI (gapro_tpu_torch/tools/test.py) on 2 full-size scenes:
+    per-scene time and AP, counts zeroed just before and read just after;
+12. one batch-4 training step with its layer calls timed, and one under
+    torch.profiler.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -47,6 +61,7 @@ import importlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -95,6 +110,44 @@ GRAD_ATOL = 1e-5
 # NOISE_FACTOR times the noise run's largest (and 1 if that is below 1), and
 # at most NOISE_FACTOR times as many leaves over their tolerance.
 NOISE_FACTOR = 2.0
+# K5 against its plain version: the JAX package's own tolerance for the same
+# function summed in another order (tests/test_dyco_pallas.py).
+K5_RTOL, K5_ATOL = 2e-5, 2e-4
+# K5's launches on the paths: (B, Q, S, what). S is spp_cap; a batch-4
+# training step, a validation scene (one round of n_queries), the three
+# rounds of a request, and a ragged shape.
+DYCO_SHAPES = ((4, 256, 4096, "training step, batch 4"), (1, 256, 4096, "validation scene"),
+               (1, 192, 4096, "request round 1"), (1, 128, 4096, "request round 2"),
+               (1, 64, 4096, "request round 3"), (1, 12, 130, "ragged"))
+# The full-size bench scene (tools/bench_model.py), about 240k points.
+FULL_SCENE = dict(n_objects=12, points_per_object=15000, n_floor=40000, n_wall=20000)
+BATCH = 4  # configs/isbnet_scannetv2.yaml: train.batch_size
+TRAIN_SCENES = 16  # four steps of batch 4: one cold, three timed
+VAL_SCENES = 2
+TEST_SCENES = 2
+DATA_WORKERS = 4
+
+
+# configs/isbnet_scannetv2.yaml as a dict: the card's machine has no PyYAML
+# (tests/test_torch_trainer.py holds the two equal).
+ISBNET_SCANNETV2 = {
+    "model": {"type": "isbnet", "channels": 32, "num_blocks": 7, "instance_classes": 18,
+              "semantic_classes": 19, "semantic_only": False, "with_coords": True,
+              "filter_bg_thresh": 0.1, "dec_dim": 128, "n_sample_pa1": 2048, "n_queries": 256,
+              "radius_scale": 1.0, "neighbor": 32, "mask_dim_out": 32, "spp_cap": 4096},
+    "criterion": {"instance_classes": 18, "voxel_scale": 50.0, "trainall": False,
+                  "inst_cap": 192},
+    "data": {"type": "scannetv2", "data_root": "dataset/scannetv2",
+             "label_type": "gaussian_process_kl_pseudo_labels",
+             "plan_shrink": [0.67, 0.3, 0.25, 0.25, 0.25, 0.25], "prefix_train": "train",
+             "prefix_val": "val", "repeat": 4,
+             "voxel": {"scale": 50, "spatial_shape": [128, 512], "max_npoint": 250000,
+                       "min_npoint": 5000}},
+    "train": {"batch_size": 4, "epochs": 120, "step_epoch": 100, "lr": 0.001,
+              "weight_decay": 0.0001, "save_freq": 16, "eval_every": 16, "pretrain": None},
+    "test": {"logit_thresh": 0.0, "score_thresh": 0.2, "npoint_thresh": 100,
+             "type_nms": "matrix", "topk": 100},
+}
 
 
 def dw_rtol(v: int) -> float:
@@ -132,13 +185,15 @@ def bound_ms(nbytes: float, ops: float):
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model's kernel wrappers to their plain versions."""
+    from gapro_tpu_torch.models import dyco
     from gapro_tpu_torch.ops import fps as fps_ops
     from gapro_tpu_torch.sparse import conv
 
     names = ((conv, "subm_conv_cuda", conv.subm_conv),
              (conv, "subm_conv_dfeats_cuda", conv.subm_conv),
              (conv, "subm_conv_dw_cuda", conv.subm_conv_dw),
-             (fps_ops, "fps_cuda", fps_ops.fps_masked))
+             (fps_ops, "fps_cuda", fps_ops.fps_masked),
+             (dyco, "dyco_cuda", dyco.dyco_mlp_plain))
     saved = [getattr(mod, name) for mod, name, _ in names]
     for mod, name, plain in names:
         setattr(mod, name, plain)
@@ -150,21 +205,24 @@ def plain_kernels():
 
 
 def zero_counts() -> None:
+    from gapro_tpu_torch.models import dyco
     from gapro_tpu_torch.ops import fps as fps_ops
     from gapro_tpu_torch.sparse import conv
 
     for f in (conv.subm_conv_cuda, conv.subm_conv_dfeats_cuda, conv.subm_conv_dw_cuda,
-              fps_ops.fps_cuda):
+              fps_ops.fps_cuda, dyco.dyco_cuda):
         f.launches = 0
 
 
 def read_counts() -> dict:
+    from gapro_tpu_torch.models import dyco
     from gapro_tpu_torch.ops import fps as fps_ops
     from gapro_tpu_torch.sparse import conv
 
     return {"subm_conv": conv.subm_conv_cuda.launches,
             "subm_conv_dfeats": conv.subm_conv_dfeats_cuda.launches,
-            "subm_conv_dw": conv.subm_conv_dw_cuda.launches, "fps": fps_ops.fps_cuda.launches}
+            "subm_conv_dw": conv.subm_conv_dw_cuda.launches, "fps": fps_ops.fps_cuda.launches,
+            "dyco": dyco.dyco_cuda.launches}
 
 
 def k1_shape_counts(cfg, caps):
@@ -582,7 +640,7 @@ def train_path(cfg, scenes, dev) -> dict:
     print(f"training path launches over 3 steps: {launches}; per step median "
           f"{statistics.median(times):.1f} ms (all: {', '.join(f'{t:.1f}' for t in times)}); "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    need = {"subm_conv": 53, "subm_conv_dfeats": 52, "subm_conv_dw": 53, "fps": 1}
+    need = {"subm_conv": 53, "subm_conv_dfeats": 52, "subm_conv_dw": 53, "fps": 1, "dyco": 1}
     if any(launches[k] < 3 * n for k, n in need.items()):
         fail(f"the training path did not run through the kernels as expected: {launches}, "
              f"need at least {need} per step")
@@ -619,6 +677,292 @@ def train_plain_compare(cfg, pb, dev) -> None:
     print(f"plain training step, scene 0: {plain_ms:.1f} ms; agrees with the kernels "
           f"({summary}); {n_gt} matched instances; the plain run's own matcher "
           f"{'agreed' if torch.equal(own, assign) else 'DISAGREED'}", flush=True)
+
+
+class GPLabelled:
+    """A dataset whose scenes carry seeded GP labels (``gp_labels``), as the
+    pseudo-labelled ScanNet split does."""
+
+    def __init__(self, base):
+        self.base = base
+        self.voxel_cfg = base.voxel_cfg
+
+    def __len__(self):
+        return len(self.base)
+
+    def scan_id(self, index):
+        return self.base.scan_id(index)
+
+    def load(self, index):
+        scene = self.base.load(index)
+        scene.update(gp_labels(index, len(scene["xyz"])))
+        return scene
+
+
+def full_config(epochs: int = 1):
+    """``ISBNET_SCANNETV2`` as the trainer reads it, with every voxel kept
+    foreground (``filter_bg_thresh`` 0, as in the other phases: untrained
+    semantics leave no voxel above 0.1)."""
+    from gapro_tpu_torch.train.config import AttrDict
+
+    cfg = AttrDict.wrap(ISBNET_SCANNETV2)  # new dicts and lists all the way down
+    cfg.model["filter_bg_thresh"] = 0.0
+    cfg.train["epochs"] = epochs
+    return cfg
+
+
+def dyco_inputs(dev, b, q, s, m=32, seed=0):
+    """Mask-head inputs at the model's scales: weights of O(1/sqrt(fan_in)),
+    unit features and geometry, a fifth of the superpoints invalid."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    h = m // 2
+    r = lambda *shape, scale=1.0: (torch.randn(*shape, generator=g) * scale).to(dev)
+    return (r(b, q, m + 6, m, scale=(m + 6) ** -0.5), r(b, q, m, h, scale=m ** -0.5),
+            r(b, q, h, 1, scale=h ** -0.5), r(b, q, m, scale=0.1), r(b, q, h, scale=0.1),
+            r(b, q, 3), r(b, q, 3).abs(), r(b, s, m), r(b, s, 3), r(b, s, 3).abs(),
+            (torch.rand(b, s, generator=g) > 0.2).to(dev))
+
+
+def dyco_kernel_phase(dev) -> dict:
+    """K5 against the plain einsum version at each shape of ``DYCO_SHAPES``
+    (TF32 is off), timed with its bound; then ``DycoFn``'s gradients on the
+    card against ``torch.autograd.grad`` of the plain version at the
+    training shape. Returns the timings by shape and the largest error."""
+    import torch
+
+    from gapro_tpu_torch.models import dyco
+
+    print("K5 dyco_cuda vs plain (B, Q, S):", flush=True)
+    res = dict(err=0.0, shapes={})
+    for b, q, s, what in DYCO_SHAPES:
+        args = dyco_inputs(dev, b, q, s, seed=q + s)
+        got = dyco.dyco_cuda(*args)
+        want = dyco.dyco_mlp_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        bad = (got - want).abs() > K5_ATOL + K5_RTOL * want.abs()
+        if bool(bad.any()):
+            fail(f"K5 at B={b} Q={q} S={s}: {int(bad.sum())} logits outside rtol {K5_RTOL}, atol "
+                 f"{K5_ATOL}; max |err| {err:.3g}")
+        if not bool((got.transpose(1, 2)[~args[-1]] == MASK_FILL).all()):
+            fail(f"K5 at B={b} Q={q} S={s}: invalid superpoints are not exactly {MASK_FILL}")
+        ms = cuda_ms(lambda: dyco.dyco_cuda(*args), 10)
+        pms = cuda_ms(lambda: dyco.dyco_mlp_plain(*args), 3)
+        m, h = 32, 16
+        pairs = q * int(args[-1].sum())  # the kernel skips invalid superpoints
+        ops = pairs * (2 * (m + 6) * m + 2 * m * h + 2 * h + 9 + 2 * (m + h))
+        nbytes = 4 * (b * q * ((m + 6) * m + m * h + h + m + h + 6) + b * s * (m + 6)
+                      + b * q * s) + b * s
+        bms, by = bound_ms(nbytes, ops)
+        res["err"] = max(res["err"], err)
+        res["shapes"][what] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                   bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                                   ops_ms=ops / FP32_FLOPS * 1e3)
+        print(f"  B={b} Q={q:3d} S={s:4d} ({what}): kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}; {ops / 1e9:.3f} GFLOP over {pairs} valid pairs, "
+              f"{ops / ms / 1e9:.2f} TFLOP/s), max|err| {err:.3g}", flush=True)
+    b, q, s, _ = DYCO_SHAPES[0]
+    args = dyco_inputs(dev, b, q, s, seed=7)
+    xs = [a.clone().requires_grad_() for a in args[:-1]]
+    ys = [a.clone().requires_grad_() for a in args[:-1]]
+    ct = torch.randn(b, q, s, generator=torch.Generator().manual_seed(8)).to(dev)
+    gk = torch.autograd.grad(dyco.DycoFn.apply(*xs, args[-1]), xs, ct)
+    gp = torch.autograd.grad(dyco.dyco_mlp_plain(*ys, args[-1]), ys, ct)
+    worst = 0.0
+    for i, (a, w) in enumerate(zip(gk, gp)):
+        e = float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, e)
+        if e > 1e-5:
+            fail(f"DycoFn gradient of input {i} differs from the plain version's by {e:.3g} "
+                 f"of its scale")
+    print(f"K5 backward (DycoFn, plain recompute) at B={b} Q={q} S={s}: the ten gradients "
+          f"within {worst:.3g} of their scale of autograd through the plain version", flush=True)
+    return res
+
+
+def stage_line(ms: dict) -> str:
+    return f"{sum(ms.values()):.1f} ms (" + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()) + " ms)"
+
+
+def trainer_phase(dev, work_dir: str) -> dict:
+    """The port's trainer (``gapro_tpu_torch/tools/train.py:train``) at full
+    width and the config's batch 4, one epoch of ``TRAIN_SCENES`` scenes
+    with seeded GP labels, loaded by ``DATA_WORKERS`` forked workers: one
+    cold step, then the counts zeroed and three steps timed by stage; then
+    validation on ``VAL_SCENES`` scenes; then the checkpoint it wrote, taken
+    up again through ``resume`` and compared bit for bit."""
+    import torch
+
+    from gapro_tpu_torch.data.dataset import SyntheticDataset
+    from gapro_tpu_torch.tools import train as port_train
+
+    cfg = full_config(epochs=1)
+    vc = port_train.voxel_cfg(cfg)
+    train_ds = GPLabelled(SyntheticDataset(n_scenes=TRAIN_SCENES, training=True, voxel_cfg=vc,
+                                           **FULL_SCENE))
+    val_ds = SyntheticDataset(n_scenes=VAL_SCENES, training=False, voxel_cfg=vc, **FULL_SCENE)
+    stamps, steps, out = [], [], {}
+    n_steps = TRAIN_SCENES // BATCH
+
+    def mark(name):
+        torch.cuda.synchronize()
+        stamps.append((name, time.perf_counter()))
+
+    def on_step(losses):
+        ms = {name: (t - stamps[i][1]) * 1e3 for i, (name, t) in enumerate(stamps[1:])}
+        if steps:
+            ms = {"data": (stamps[0][1] - out["end"]) * 1e3, **ms}
+        out["end"] = stamps[-1][1]
+        stamps.clear()
+        steps.append((ms, losses))
+        label = "cold training step" if len(steps) == 1 else f"training step {len(steps) - 1}"
+        print(f"trainer, batch {BATCH}, {label}: {stage_line(ms)}; "
+              + ", ".join(f"{k} {v:.6g}" for k, v in losses.items()), flush=True)
+        bad = [k for k, v in losses.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"trainer step {len(steps)}: not finite: {bad}")
+        if len(steps) == 1:
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+        elif len(steps) == n_steps:
+            out["launches"] = read_counts()
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    val_ms = []
+    validate = port_train.validate
+
+    def timed_validate(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = validate(*args, **kwargs)
+        torch.cuda.synchronize()
+        val_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    port_train.validate = timed_validate
+    try:
+        res = port_train.train(cfg, work_dir, device=dev, dataset=train_ds, val_dataset=val_ds,
+                               val_scenes=VAL_SCENES, num_workers=DATA_WORKERS, on_stage=mark,
+                               on_step=on_step)
+    finally:
+        port_train.validate = validate
+    if len(steps) != n_steps or not val_ms:
+        fail(f"the trainer ran {len(steps)} steps (want {n_steps}) and {len(val_ms)} validations")
+    timed = [sum(ms.values()) for ms, _ in steps[1:]]
+    launches = out["launches"]
+    ovf = {k: [v[k] for _, v in steps] for k in steps[0][1] if k.startswith("ovf_")}
+    rec = res["records"][-1]
+    print(f"trainer: {n_steps - 1} timed steps of batch {BATCH}, median "
+          f"{statistics.median(timed):.1f} ms (all: {', '.join(f'{t:.1f}' for t in timed)}); "
+          f"launches over them {launches}; peak device memory {out['peak_gib']:.2f} GiB; "
+          f"ovf counters by step {ovf}", flush=True)
+    print(f"trainer validation, {VAL_SCENES} scenes: {val_ms[0]:.1f} ms; val_ap {rec['val_ap']:.4f}"
+          f" val_ap50 {rec['val_ap50']:.4f} val_ap25 {rec['val_ap25']:.4f}", flush=True)
+    need = {"subm_conv": 53, "subm_conv_dfeats": 52, "subm_conv_dw": 53, "fps": 1, "dyco": 1}
+    if any(launches[k] < (n_steps - 1) * n for k, n in need.items()):
+        fail(f"the trainer did not run through the kernels as expected: {launches}, need at "
+             f"least {need} per step")
+
+    again = port_train.train(cfg, work_dir, device=dev, dataset=train_ds, skip_validate=True,
+                             resume=os.path.join(work_dir, "latest"))
+    want, got = res["model"].state_dict(), again["model"].state_dict()
+    diff = [k for k in want if not torch.equal(want[k], got[k])]
+    wo, go = res["state"].optimizer.state_dict()["state"], again["state"].optimizer.state_dict()["state"]
+    diff += [f"optimizer {i}.{k}" for i in wo for k in wo[i]
+             if not torch.equal(torch.as_tensor(wo[i][k]), torch.as_tensor(go[i][k]))]
+    if diff or again["state"].step != res["state"].step or again["records"]:
+        fail(f"resume from the trainer's checkpoint differs: {diff[:8]}, step "
+             f"{again['state'].step} vs {res['state'].step}")
+    print(f"trainer checkpoint: resumed from {os.path.basename(os.path.realpath(os.path.join(work_dir, 'latest')))}"
+          f" at step {again['state'].step}: {len(want)} model entries (BatchNorm statistics "
+          f"included) and the optimizer state equal bit for bit", flush=True)
+    return dict(cfg=cfg, train_ds=train_ds, state=res["state"], launches=launches,
+                step_ms=timed, peak_gib=out["peak_gib"], ovf=ovf, val_ms=val_ms[0], record=rec)
+
+
+def trainer_plain_compare(cfg, train_ds, dev):
+    """One batch-4 step's losses through the kernels and through the plain
+    versions (the plain run given the kernel run's assignment), from the
+    same weights, on the trainer's first batch. Returns the prepared batch
+    and its ``prepare`` for the profile."""
+    import torch
+
+    from gapro_tpu_torch.data.dataset import build_dataloader
+    from gapro_tpu_torch.tools import train as port_train
+    from gapro_tpu_torch.train import step
+
+    loader = build_dataloader(train_ds, BATCH, training=True, seed=0, epoch=1,
+                              num_workers=DATA_WORKERS)
+    lb = next(loader)
+    loader.close()  # shuts the workers down
+    prepare = port_train.make_prepare(cfg, dev)
+    prepared = prepare(lb.points, lb.batch_size)
+    runs = {}
+    for name in ("kernels", "plain"):
+        model, crit = port_train.build_model(cfg, dev, seed=0)
+        model.train()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), (plain_kernels() if name == "plain" else contextlib.nullcontext()):
+            _, (losses, aux) = step._loss_fn(model, prepared, crit,
+                                             assign=runs["kernels"][1] if runs else None)
+        torch.cuda.synchronize()
+        runs[name] = ({k: float(v) for k, v in losses.items()}, aux["assign"],
+                      (time.perf_counter() - t0) * 1e3, aux["outputs"])
+    (lk, assign, kms, _), (lp, _, pms, _) = runs["kernels"], runs["plain"]
+    # The flat superpoint capacity (spp_cap) is shared by the whole batch.
+    # compact_unique numbers the batch's superpoints in order, scene by
+    # scene; those numbered past the capacity are dropped by the segment
+    # sums before ovf_spp_slots counts anything, so count them here.
+    b, cap = prepared.batch, cfg.model.spp_cap
+    has = b.valid & (b.spp >= 0)
+    n_spp = int(b.spp[has].max()) + 1
+    slot = [f"{int((has & (b.batch_idx == i) & (b.spp < cap)).sum())}/"
+            f"{int((has & (b.batch_idx == i)).sum())}" for i in range(lb.batch_size)]
+    dense = runs["kernels"][3]["sp_dense_valid"].sum(1).tolist()
+    print(f"batch-4 superpoints: {n_spp} in the batch against the flat capacity {cap} "
+          f"({max(0, n_spp - cap)} dropped, which no ovf_* counter counts; ovf_spp_slots "
+          f"{lk['ovf_spp_slots']:.0f}); voxels with a superpoint slot by scene {slot}; valid "
+          f"dense superpoint slots by scene {dense}", flush=True)
+    bad = [f"{k} {lk[k]:.6g} vs {v:.6g}" for k, v in lp.items()
+           if not math.isfinite(lk[k]) or abs(lk[k] - v) > PATH_RTOL * max(1.0, abs(v))]
+    if bad:
+        fail("batch-4 losses, kernels vs plain: " + "; ".join(bad))
+    print(f"plain batch-4 step (forward, targets, criterion): kernels {kms:.1f} ms, plain "
+          f"{pms:.1f} ms; every loss within {PATH_RTOL} ({len(lk)} terms, "
+          f"{int((assign >= 0).sum())} matched instances over {lb.batch_size} scenes)",
+          flush=True)
+    return lb, prepare
+
+
+def test_cli_phase(model, dev) -> dict:
+    """The port's test CLI (``gapro_tpu_torch/tools/test.py:run_test``) on
+    ``TEST_SCENES`` full-size scenes with the inference model, the counts
+    zeroed just before and read just after."""
+    import torch
+
+    from gapro_tpu_torch.data.dataset import SyntheticDataset
+    from gapro_tpu_torch.tools import test as port_test
+    from gapro_tpu_torch.tools import train as port_train
+
+    cfg = full_config()
+    ds = SyntheticDataset(n_scenes=TEST_SCENES, training=False,
+                          voxel_cfg=port_train.voxel_cfg(cfg), **FULL_SCENE)
+    torch.cuda.synchronize()
+    zero_counts()
+    res = port_test.run_test(cfg, device=dev, dataset=ds, model=model)
+    launches = read_counts()
+    n_inst = [len(p) for p in res["preds"]]
+    ap = {k: v for k, v in res["result"].items() if k != "classes"}
+    print(f"test CLI, {TEST_SCENES} scenes: per scene "
+          + ", ".join(f"{t * 1e3:.1f}" for t in res["seconds"])
+          + f" ms; instances {n_inst}; launches {launches}; AP {json.dumps(ap)}", flush=True)
+    if launches["dyco"] != 3 * TEST_SCENES or launches["fps"] != 4 * TEST_SCENES or not all(n_inst):
+        fail(f"the test CLI did not run through the kernels as expected: {launches}, "
+             f"instances {n_inst}")
+    return dict(launches=launches, seconds=res["seconds"])
 
 
 def main() -> None:
@@ -736,6 +1080,7 @@ def main() -> None:
         k4["ops_ms"] += ops / FP32_FLOPS * 1e3
     print(f"K4 per scene (4 launches): kernel {k4['ms']:.3f} ms, plain {k4['plain_ms']:.3f} ms, "
           f"bound {k4['bound']:.4f} ms", flush=True)
+    k5 = dyco_kernel_phase(dev)
 
     # ---- 2. backward-kernel phase -------------------------------------------
     dfeats_acc, dw_acc = backward_kernel_phase(cfg, caps, levels, dev)
@@ -781,7 +1126,7 @@ def main() -> None:
     print(f"path launches over 3 scenes: {launches}; per scene "
           f"median {statistics.median(times):.1f} ms (all: {', '.join(f'{t:.1f}' for t in times)}); "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    if launches["subm_conv"] < 53 * 3 or launches["fps"] != 4 * 3:
+    if launches["subm_conv"] < 53 * 3 or launches["fps"] != 4 * 3 or launches["dyco"] != 3 * 3:
         fail(f"the path did not run through the kernels as expected: {launches}")
 
     for prepared, out, inst in results:
@@ -811,6 +1156,7 @@ def main() -> None:
 
     # ---- 6. training path: full width, 3 steps, then one profiled ----------
     train = train_path(cfg, scenes, dev)
+    train_launches = train["launches"]
     profile_request(train["again"], "training step, scene 1")
 
     # ---- 7. plain training comparison: scene 0 -------------------------------
@@ -824,20 +1170,61 @@ def main() -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(layers.items(), key=lambda kv: -kv[1]))
           + " ms", flush=True)
     profile_request(lambda: serve(model, *scenes[1], dev), "request, scene 1")
+    del train
 
-    tl = train["launches"]
+    # ---- 9. the trainer at the config's batch 4, validation, resume -------
+    work_dir = os.path.join(str(cuda_build.BUILD_DIR), "chip_smoke_train")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    trainer = trainer_phase(dev, work_dir)
+    shutil.rmtree(work_dir)
+
+    # ---- 10. plain comparison at batch 4: one step's losses -----------------
+    lb4, prepare4 = trainer_plain_compare(trainer["cfg"], trainer["train_ds"], dev)
+
+    # ---- 11. the test CLI on full-size scenes --------------------------------
+    test_cli = test_cli_phase(model, dev)
+
+    # ---- 12. one batch-4 step under the profiler ----------------------------
+    from gapro_tpu_torch.losses.criterion import CriterionConfig
+    from gapro_tpu_torch.train import step as train_step
+
+    cfg4, st4 = trainer["cfg"], trainer["state"]
+    step4 = train_step.make_train_step(st4.model, CriterionConfig(**dict(cfg4.criterion)))
+    run4 = lambda: step4(st4, prepare4(lb4.points, lb4.batch_size), cfg4.train.lr * BATCH / 16)
+    layers = layer_times(run4)
+    print(f"layers, training step, batch {BATCH} (host clock, synchronised around each forward "
+          "call): " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(layers.items(),
+                                                                   key=lambda kv: -kv[1]))
+          + " ms", flush=True)
+    profile_request(run4, f"training step, batch {BATCH}")
+
+    tl, t4 = train_launches, trainer["launches"]
+    req = [k5["shapes"][f"request round {i}"] for i in (1, 2, 3)]
+    k5_req = dict(err=k5["err"], **{key: sum(r[key] for r in req)
+                                    for key in ("ms", "plain_ms", "bytes_ms", "ops_ms")},
+                  bound=sum(r["bound_ms"] for r in req))
+    k5_train, k5_val = k5["shapes"]["training step, batch 4"], k5["shapes"]["validation scene"]
     kernels = []
     for name, src, rep, k, n, extra in (
             ("subm_conv", "gapro_tpu_torch/csrc/subm_conv.cu",
              "gapro_tpu/sparse/window_conv.py:263", k1, launches["subm_conv"],
              dict(train_launches=tl["subm_conv"], bwd_launches=tl["subm_conv_dfeats"],
                   bwd_ms=dfeats_acc["ms"], bwd_plain_ms=dfeats_acc["plain_ms"],
-                  bwd_bound_ms=dfeats_acc["bound"], bwd_max_abs_err=dfeats_acc["err"])),
+                  bwd_bound_ms=dfeats_acc["bound"], bwd_max_abs_err=dfeats_acc["err"],
+                  train_b4_launches=t4["subm_conv"], train_b4_bwd_launches=t4["subm_conv_dfeats"])),
             ("subm_conv_dw", "gapro_tpu_torch/csrc/subm_conv_dw.cu",
              "gapro_tpu/sparse/window_conv.py:404, gapro_tpu/sparse/window_conv.py:366", dw_acc,
-             tl["subm_conv_dw"], {}),
+             tl["subm_conv_dw"], dict(train_b4_launches=t4["subm_conv_dw"])),
             ("fps", "gapro_tpu_torch/csrc/fps.cu", "gapro_tpu/ops/fps_pallas.py:42", k4,
-             launches["fps"], dict(train_launches=tl["fps"]))):
+             launches["fps"], dict(train_launches=tl["fps"], train_b4_launches=t4["fps"],
+                                   test_cli_launches=test_cli["launches"]["fps"])),
+            ("dyco", "gapro_tpu_torch/csrc/dyco.cu", "gapro_tpu/models/dyco.py:100", k5_req,
+             launches["dyco"],
+             dict(train_launches=tl["dyco"], train_b4_launches=t4["dyco"],
+                  test_cli_launches=test_cli["launches"]["dyco"],
+                  train_b4_ms=k5_train["ms"], train_b4_plain_ms=k5_train["plain_ms"],
+                  train_b4_bound_ms=k5_train["bound_ms"], val_ms=k5_val["ms"],
+                  val_plain_ms=k5_val["plain_ms"], val_bound_ms=k5_val["bound_ms"]))):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, launches=n,
             max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound"],

@@ -1,9 +1,46 @@
-"""ScanNet label conventions (numpy copy of the part of
-``gapro_tpu/data/scannet_io.py`` the port needs)."""
+"""ScanNet v2 files and label conventions (numpy copy of the part of
+``gapro_tpu/data/scannet_io.py`` the port needs).
+
+The reference's preprocessed layout:
+
+* ``<root>/{train,val}/<scan>_inst_nostuff.pth`` -> (xyz, rgb, sem, inst);
+* ``<root>/superpoints/<scan>.pth`` -> superpoint ids;
+* ``<root>/<label_type>/<scan>.pth`` -> GP pseudo labels (sem, inst, prob,
+  mu, var), mu and var per superpoint.
+
+The files are torch pickles; ``torch.load`` reads them on the CPU and
+everything is handed on as numpy.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def _torch_load(path):
+    # the files hold numpy arrays and tuples, which the weights-only
+    # unpickler refuses
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_scene(path):
+    """``<scan>_inst_nostuff.pth`` -> (xyz, rgb, sem, inst) numpy arrays."""
+    xyz, rgb, sem, inst = _torch_load(path)
+    return (np.asarray(xyz, np.float32), np.asarray(rgb, np.float32),
+            np.asarray(sem).astype(np.int64), np.asarray(inst).astype(np.int64))
+
+
+def load_superpoints(path):
+    return np.asarray(_torch_load(path)).astype(np.int64)
+
+
+def load_pseudo_labels(path):
+    """A pseudo-label file -> (sem, inst, prob, mu, var)."""
+    sem, inst, prob, mu, var = _torch_load(path)
+    return (np.asarray(sem).astype(np.int64), np.asarray(inst).astype(np.int64),
+            np.asarray(prob, np.float32), np.asarray(mu, np.float32),
+            np.asarray(var, np.float32))
 
 
 def remap_semantic_for_training(sem, label_shift: int = 2, background_class: int = 18):

@@ -3,7 +3,8 @@
 The reference exporter's wire format: ``{"length": N, "counts": [start,
 length, ...]}`` with 1-based run starts. ``rle_encode_rows`` encodes a batch
 of masks where they lie: the runs are found on the device and only they
-cross to the host, not the [K, N] masks.
+cross to the host, not the [K, N] masks. ``rle_decode`` is the numpy
+inverse, for evaluation and export.
 """
 
 from __future__ import annotations
@@ -27,3 +28,16 @@ def rle_encode_rows(masks: torch.Tensor) -> list:
     counts[1::2] -= counts[0::2]
     ends = np.cumsum(torch.bincount(rows, minlength=k).cpu().numpy())
     return [dict(length=int(n), counts=c) for c in np.split(counts.cpu().numpy(), ends[:-1])]
+
+
+def rle_decode(rle: dict) -> np.ndarray:
+    """A record ``{"length", "counts"}`` (counts as an array or a string of
+    integers) -> the [N] bool mask."""
+    counts = rle["counts"]
+    if isinstance(counts, str):
+        counts = np.array([int(x) for x in counts.split()], np.int64)
+    counts = np.asarray(counts, np.int64)
+    out = np.zeros(rle["length"], dtype=bool)
+    for s, n in zip(counts[::2] - 1, counts[1::2]):
+        out[s:s + n] = True
+    return out

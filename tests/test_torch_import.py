@@ -21,7 +21,12 @@ def test_port_imports_no_jax():
                                                         "gapro_tpu_torch."))
     assert {"gapro_tpu_torch.models.isbnet", "gapro_tpu_torch.convert",
             "gapro_tpu_torch.losses.criterion", "gapro_tpu_torch.losses.matcher",
-            "gapro_tpu_torch.train.state", "gapro_tpu_torch.train.step"} <= set(mods)
+            "gapro_tpu_torch.train.state", "gapro_tpu_torch.train.step",
+            "gapro_tpu_torch.models.dyco", "gapro_tpu_torch.data.dataset",
+            "gapro_tpu_torch.data.augment", "gapro_tpu_torch.eval.instance_eval",
+            "gapro_tpu_torch.eval.runner", "gapro_tpu_torch.train.checkpoint",
+            "gapro_tpu_torch.train.config", "gapro_tpu_torch.tools.train",
+            "gapro_tpu_torch.tools.test"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from gapro_tpu_torch.core.segment import segment_mean
+from gapro_tpu_torch.models import dyco
 from gapro_tpu_torch.ops import fps as fps_ops
 from gapro_tpu_torch.ops.voxelize import voxelize
 from gapro_tpu_torch.sparse import conv
@@ -31,6 +32,19 @@ def _grid(device):
     maps = voxelize(torch.as_tensor(coords, device=device), EXTENTS, CAP)
     return SparseGrid(coords=maps.voxel_coords, valid=maps.valid_voxel,
                       num_voxels=maps.num_voxels, spatial_shape=EXTENTS, batch_size=1)
+
+
+def _dyco_args(device, B, Q, S, m=32, seed=0):
+    """Mask-head inputs at the model's scales: controller weights of
+    O(1/sqrt(fan_in)), unit features and geometry, a fifth of the
+    superpoints invalid."""
+    g = torch.Generator().manual_seed(seed)
+    h = m // 2
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(device)
+    return (r(B, Q, m + 6, m, scale=(m + 6) ** -0.5), r(B, Q, m, h, scale=m ** -0.5),
+            r(B, Q, h, 1, scale=h ** -0.5), r(B, Q, m, scale=0.1), r(B, Q, h, scale=0.1),
+            r(B, Q, 3), r(B, Q, 3).abs(), r(B, S, m), r(B, S, 3), r(B, S, 3).abs(),
+            (torch.rand(B, S, generator=g) > 0.2).to(device))
 
 
 @pytest.fixture
@@ -52,7 +66,8 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
     dout = torch.randn(CAP, 32, generator=g)
     w_rev = w.flip(0).transpose(1, 2).contiguous()
     counts = lambda: (conv.subm_conv_cuda.launches, conv.subm_conv_dfeats_cuda.launches,
-                      conv.subm_conv_dw_cuda.launches, fps_ops.fps_cuda.launches)
+                      conv.subm_conv_dw_cuda.launches, fps_ops.fps_cuda.launches,
+                      dyco.dyco_cuda.launches)
     before = counts()
     assert torch.equal(conv.subm_conv_cuda(feats, nbr, w, grid.valid),
                        conv.subm_conv(feats, nbr, w, grid.valid))
@@ -61,6 +76,8 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
     assert torch.equal(conv.subm_conv_dw_cuda(feats, nbr, dout), conv.subm_conv_dw(feats, nbr, dout))
     got, want = fps_ops.fps(xyz, valid, 32), fps_ops.fps_masked(xyz, valid, 32)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    dargs = _dyco_args(torch.device("cpu"), 2, 3, 50)
+    assert torch.equal(dyco.dyco_cuda(*dargs), dyco.dyco_mlp_plain(*dargs))
     assert counts() == before
 
 
@@ -142,3 +159,30 @@ def test_segment_mean_is_deterministic_on_card(cuda_device):
     assert torch.equal(a, b)
     torch.testing.assert_close(a.cpu(), segment_mean(data.cpu(), seg.cpu(), 256),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Q,S", [(4, 256, 4096), (1, 12, 130)])
+def test_dyco_cuda_matches_plain(cuda_device, B, Q, S):
+    """K5 against the plain einsum version with TF32 off (rtol 2e-5, atol
+    2e-4: another summation order); invalid superpoints are exactly -1e4;
+    and the gradients of ``DycoFn`` on the card (the plain recompute)
+    against ``torch.autograd.grad`` of the plain version: the same
+    operations on the same inputs, within 1e-5 of each gradient's scale in
+    case a reduction on the card orders its sum by timing."""
+    args = _dyco_args(cuda_device, B, Q, S, seed=Q)
+    before = dyco.dyco_cuda.launches
+    got = dyco.dyco_cuda(*args)
+    torch.cuda.synchronize()
+    assert dyco.dyco_cuda.launches == before + 1
+    want = dyco.dyco_mlp_plain(*args)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
+    assert (got.transpose(1, 2)[~args[-1]] == -1e4).all()
+
+    xs = [a.clone().requires_grad_() for a in args[:-1]]
+    ys = [a.clone().requires_grad_() for a in args[:-1]]
+    ct = torch.randn(got.shape, device=cuda_device)
+    gk = torch.autograd.grad(dyco.DycoFn.apply(*xs, args[-1]), xs, ct)
+    gp = torch.autograd.grad(dyco.dyco_mlp_plain(*ys, args[-1]), ys, ct)
+    for a, b in zip(gk, gp):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))

@@ -61,6 +61,7 @@ import importlib
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -70,9 +71,16 @@ from collections import Counter
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 CUDA-core FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 CUDA-core FLOP/s and
+# dense TF32 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+# The conv kernels take each fp32 product in the split form 3xTF32 (three
+# TF32 products: a_lo.b_hi + a_hi.b_lo + a_hi.b_hi): the cost of that form,
+# 3 times the function's operations at the TF32 rate, is shown beside their
+# bound, which counts the function's own operations.
+TF32_PASSES = 3
 
 FULL_SHRINK = (0.67, 0.3, 0.25, 0.25, 0.25, 0.25)
 ROUNDS = (192, 128, 64)
@@ -177,9 +185,67 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float):
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+def bound_ms(nbytes: float, ops: float, rate: float = FP32_FLOPS):
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return max(b, o), ("bytes" if b >= o else "operations")
+
+
+def conv_bounds(nbytes: float, flops: float) -> dict:
+    """A conv kernel's bounds for the function's ``flops`` on ``nbytes``:
+    the one it is held to (those operations at the TF32 tensor-core rate),
+    and, beside it, fp32 on the CUDA cores and the cost of the 3xTF32 form
+    the kernels take (three TF32 products for each fp32 one)."""
+    bms, by = bound_ms(nbytes, flops, TF32_FLOPS)
+    return dict(bound=bms, by=by, fp32=bound_ms(nbytes, flops)[0],
+                x3=bound_ms(nbytes, TF32_PASSES * flops, TF32_FLOPS)[0])
+
+
+def spatial_tables(nbr):
+    """K1's tables in the grid's own (spatial) row order, to time against
+    the mask-sorted order of the plan's ``ConvTables``: ``rows()`` as there."""
+    import types
+
+    import torch
+
+    from gapro_tpu_torch.sparse.plan import tile_masks
+
+    order = torch.arange(nbr.shape[0], dtype=torch.int32, device=nbr.device)
+    rows = (order, tile_masks(nbr, order))
+    return types.SimpleNamespace(rows=lambda: rows)
+
+
+def computed_slots(masks, cin: int) -> int:
+    """The (row, offset) slots K1 computes under the tile masks ``masks``:
+    TILE_ROWS rows for every offset its 32-column chunks touch (a chunk
+    spans 32 // cin offsets where cin < 32; cin is padded to a multiple of
+    8, as the kernel pads it)."""
+    from gapro_tpu_torch.sparse.plan import KOFF, TILE_ROWS
+
+    span = max(1, 32 // (-(-cin // 8) * 8))
+    groups = masks * 0
+    for k in range(KOFF):  # a chunk is live when any of its offsets is
+        groups |= ((masks >> k) & 1) << (k // span)
+    live = sum(int(((groups >> c) & 1).sum()) for c in range((KOFF + span - 1) // span))
+    return TILE_ROWS * span * live
+
+
+def sass_counts() -> dict:
+    """Tensor-core instructions in the SASS of the two conv libraries
+    (``cuobjdump -sass``): HGMMA is wgmma, HMMA mma.sync. None where the
+    toolkit has no cuobjdump."""
+    from gapro_tpu_torch import cuda_build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = shutil.which("cuobjdump") or (tool if os.path.exists(tool) else None)
+    if tool is None:
+        return {}
+    out = {}
+    for name in ("subm_conv", "subm_conv_dw"):
+        sass = subprocess.run([tool, "-sass", str(cuda_build.BUILD_DIR / f"lib{name}.so")],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+        lines = sass.splitlines()
+        out[name] = {op: sum(op in line for line in lines) for op in ("HGMMA", "HMMA")}
+    return out
 
 
 @contextlib.contextmanager
@@ -189,9 +255,9 @@ def plain_kernels():
     from gapro_tpu_torch.ops import fps as fps_ops
     from gapro_tpu_torch.sparse import conv
 
-    names = ((conv, "subm_conv_cuda", conv.subm_conv),
-             (conv, "subm_conv_dfeats_cuda", conv.subm_conv),
-             (conv, "subm_conv_dw_cuda", conv.subm_conv_dw),
+    names = ((conv, "subm_conv_cuda", lambda f, n, w, v, tables: conv.subm_conv(f, n, w, v)),
+             (conv, "subm_conv_dfeats_cuda", lambda f, n, w, v, tables: conv.subm_conv(f, n, w, v)),
+             (conv, "subm_conv_dw_cuda", lambda f, n, d, tables: conv.subm_conv_dw(f, n, d)),
              (fps_ops, "fps_cuda", fps_ops.fps_masked),
              (dyco, "dyco_cuda", dyco.dyco_mlp_plain))
     saved = [getattr(mod, name) for mod, name, _ in names]
@@ -382,19 +448,48 @@ def layer_times(fn) -> dict:
     return dict(acc)
 
 
-def profile_request(fn, what: str, top: int = 12) -> None:
-    """Run ``fn`` once under torch.profiler and print the device time by
-    kernel and the share of its wall time the card was busy."""
+# The conv kernels and their helpers in a trace: K1 with its B tiling and
+# split sum, dW with its split sum.
+CONV_KERNELS = {"subm_conv_kernel": "K1", "tile_b_kernel": "K1",
+                "subm_conv_sum_splits_kernel": "K1", "subm_conv_dw_kernel": "dW",
+                "subm_conv_dw_sum_splits_kernel": "dW"}
+
+
+def profile_request(fn, what: str, top: int = 12, attempts: int = 3) -> None:
+    """Run ``fn`` under torch.profiler and print the device time by kernel,
+    the share of its wall time the card was busy, and the conv kernels' time
+    and launches. A trace that holds fewer conv launches than the wrappers
+    counted lost events, and is taken again, up to ``attempts`` times; if
+    the last is still short, that is printed with the numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, attempts + 1):
+        before = read_counts()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        after = read_counts()
+        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        conv_ms, conv_n = Counter(), Counter()
+        for e in kern:
+            # the demangled name, "void (anonymous namespace)::subm_conv_kernel<64>(...)"
+            name = next((w for w in re.findall(r"\w+", e.name) if w in CONV_KERNELS), None)
+            if name:
+                key = CONV_KERNELS[name]
+                conv_ms[key] += e.time_range.elapsed_us() / 1e3
+                conv_n[key] += name in ("subm_conv_kernel", "subm_conv_dw_kernel")
+        want = {"K1": sum(after[k] - before[k] for k in ("subm_conv", "subm_conv_dfeats")),
+                "dW": after["subm_conv_dw"] - before["subm_conv_dw"]}
+        if all(conv_n[k] == n for k, n in want.items()):
+            break
+        print(f"profile, {what}: the trace holds {dict(conv_n)} conv launches of {want}; "
+              + ("taken again" if attempt < attempts else
+                 f"still short after {attempts} traces, the conv sums below miss launches"),
+              flush=True)
     if not kern:
         print(f"profile, {what}: wall {wall_ms:.1f} ms; the profiler recorded no device time",
               flush=True)
@@ -408,20 +503,158 @@ def profile_request(fn, what: str, top: int = 12) -> None:
           flush=True)
     for name, ms in by_name.most_common(top):
         print(f"  {ms:9.3f} ms  {name}", flush=True)
+    print(f"profile, {what}: K1 (forward and dfeats) {conv_ms['K1']:.3f} ms in {conv_n['K1']} "
+          f"launches of subm_conv_kernel, dW {conv_ms['dW']:.3f} ms in {conv_n['dW']} launches of "
+          f"subm_conv_dw_kernel (each with its helper kernels); the wrappers counted {want}",
+          flush=True)
+
+
+def conv_acc() -> dict:
+    """Per-step sums of a conv kernel over its launches at the 14 shapes."""
+    return dict(ms=0.0, plain_ms=0.0, bound=0.0, fp32=0.0, x3=0.0, bytes_ms=0.0, ops_ms=0.0,
+                flops=0.0, err=0.0)
+
+
+def add_conv(acc: dict, n: int, ms: float, pms: float, nbytes: float, flops: float,
+             err: float) -> dict:
+    """Adds ``n`` launches of one shape to ``acc``; returns the shape's bounds."""
+    bd = conv_bounds(nbytes, flops)
+    for key, val in (("ms", ms), ("plain_ms", pms), ("bound", bd["bound"]), ("fp32", bd["fp32"]),
+                     ("x3", bd["x3"]), ("flops", flops),
+                     ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3),
+                     ("ops_ms", flops / TF32_FLOPS * 1e3)):
+        acc[key] += n * val
+    acc["err"] = max(acc["err"], err)
+    return bd
+
+
+def conv_line(key: str, n: int, ms: float, pms: float, bd: dict, flops: float, err: float) -> str:
+    return (f"{key} x{n}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain {pms:.4f} ms, "
+            f"bound {bd['bound']:.4f} ms ({bd['by']}, TF32; fp32 {bd['fp32']:.4f}, 3xTF32 "
+            f"{bd['x3']:.4f}), max|err| {err:.3g}")
+
+
+def conv_step_line(key: str, n: int, a: dict) -> str:
+    return (f"{key} per step ({n} launches): kernel {a['ms']:.3f} ms "
+            f"({a['flops'] / a['ms'] / 1e9:.2f} TFLOP/s on the pairs that hold a neighbour), "
+            f"plain {a['plain_ms']:.3f} ms, bound {a['bound']:.3f} ms (TF32; {a['bound'] / a['ms']:.1%}"
+            f" of it reached), fp32 bound {a['fp32']:.3f} ms ({a['fp32'] / a['ms']:.1%}), 3xTF32 "
+            f"{a['x3']:.3f} ms ({a['x3'] / a['ms']:.1%})")
+
+
+def conv_extra(acc: dict, sass) -> dict:
+    """The conv kernels' keys of the ``kernels`` line beside the common ones:
+    ``bound_ms`` is their TF32 bound; these are the fp32 bound and the cost
+    of the 3xTF32 form, the TFLOP/s on the pairs that hold a neighbour, and
+    the tensor-core instructions of the library's SASS."""
+    return dict(bound_fp32_ms=acc["fp32"], bound_3xtf32_ms=acc["x3"],
+                tflops=acc["flops"] / acc["ms"] / 1e9, sass=sass)
+
+
+def batch4_row_orders(plan, cfg, dev) -> None:
+    """K1 forward and dfeats at levels 0 and 1 of a batch-4 plan, in the
+    mask-sorted and the spatial row order: at batch 4 level 0's features
+    (134 MB at 32 channels) no longer fit the 50 MB L2."""
+    import torch
+
+    from gapro_tpu_torch.sparse import conv
+
+    g = torch.Generator().manual_seed(2)
+    for lvl in (0, 1):
+        lp = plan.levels[lvl]
+        valid, nbr = lp.grid.valid, lp.subm_nbr
+        c = cfg.channels * (lvl + 1)
+        feats = (torch.randn(nbr.shape[0], c, generator=g).to(dev) * valid[:, None]).contiguous()
+        w = ((torch.rand(27, c, c, generator=g) * 2 - 1) * math.sqrt(3.0 / (27 * c))).to(dev)
+        w_rev = w.flip(0).transpose(1, 2)
+        spatial = spatial_tables(nbr)
+        nnz = int((nbr >= 0).sum())
+        slots = [computed_slots(t.rows()[1], c) / nnz for t in (lp.conv, spatial)]
+        fwd = order_times(lambda: conv.subm_conv_cuda(feats, nbr, w, valid, tables=lp.conv),
+                          lambda: conv.subm_conv_cuda(feats, nbr, w, valid, tables=spatial))
+        dfe = order_times(
+            lambda: conv.subm_conv_dfeats_cuda(feats, nbr, w_rev, valid, tables=lp.conv),
+            lambda: conv.subm_conv_dfeats_cuda(feats, nbr, w_rev, valid, tables=spatial))
+        flops = 2.0 * nnz * c * c
+        print(f"batch-{BATCH} row orders, level {lvl} (V={nbr.shape[0]}, {c} -> {c}, {nnz} pairs): "
+              f"K1 sorted {fwd[0]:.4f} ms ({flops / fwd[0] / 1e9:.2f} TFLOP/s), spatial "
+              f"{fwd[1]:.4f} ms; dfeats sorted {dfe[0]:.4f} ms, spatial {dfe[1]:.4f} ms; slots "
+              f"{slots[0]:.2f} sorted, {slots[1]:.2f} spatial", flush=True)
+
+
+def order_times(run_sorted, run_spatial) -> tuple:
+    """K1 in the mask-sorted and in the spatial row order, timed in turns
+    (sorted, spatial, spatial, sorted); the mean of each."""
+    t = [cuda_ms(f, 10) for f in (run_sorted, run_spatial, run_spatial, run_sorted)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def k1_phase(cfg, caps, levels, dev) -> dict:
+    """K1 against its plain version at the 14 conv shapes of the full-width
+    U-Net, timed with its bounds, its TFLOP/s on the pairs that hold a
+    neighbour and its computed (row, offset) slots over those pairs in both
+    row orders; at levels 0 and 1 its time in both orders. Returns the
+    per-scene sums."""
+    import torch
+
+    from gapro_tpu_torch.sparse import conv
+
+    g = torch.Generator().manual_seed(0)
+    k1 = conv_acc()
+    print("K1 subm_conv_cuda vs plain (per launch; V, Cin, Cout, launches/scene; slots: the "
+          "(row, offset) slots computed over the pairs that hold a neighbour, mask-sorted and "
+          "spatial row order):", flush=True)
+    for (v, cin, cout), count in sorted(k1_shape_counts(cfg, caps).items()):
+        lp = levels[caps.index(v)]
+        valid, nbr = lp.grid.valid, lp.subm_nbr
+        feats = torch.randn(v, cin, generator=g).to(dev) * valid[:, None]
+        b = math.sqrt(3.0 / (27 * cin))
+        w = ((torch.rand(27, cin, cout, generator=g) * 2 - 1) * b).to(dev)
+        got = conv.subm_conv_cuda(feats, nbr, w, valid, tables=lp.conv)
+        want = conv.subm_conv(feats, nbr, w, valid)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(want.abs().max()))
+        err = float((got - want).abs().max())
+        if err > K1_RTOL * scale:
+            fail(f"K1 at V={v} Cin={cin} Cout={cout}: max |err| {err:.3g} > {K1_RTOL} x {scale:.3g}")
+        if not bool((got[~valid] == 0).all()):
+            fail(f"K1 at V={v}: invalid rows are not exactly 0")
+        spatial = spatial_tables(nbr)
+        if not torch.equal(conv.subm_conv_cuda(feats, nbr, w, valid, tables=spatial)[~valid],
+                           got[~valid]):
+            fail(f"K1 at V={v}: invalid rows differ between the row orders")
+        ms = cuda_ms(lambda: conv.subm_conv_cuda(feats, nbr, w, valid, tables=lp.conv), 10)
+        pms = cuda_ms(lambda: conv.subm_conv(feats, nbr, w, valid), 5)
+        nnz = int((nbr >= 0).sum())
+        nbytes = v * 27 * 4 + v * cin * 4 + 27 * cin * cout * 4 + v + v * cout * 4
+        flops = 2.0 * nnz * cin * cout
+        bd = add_conv(k1, count, ms, pms, nbytes, flops, err)
+        slots = [computed_slots(t.rows()[1], cin) / nnz for t in (lp.conv, spatial)]
+        line = (f"  V={v:6d} Cin={cin:3d} Cout={cout:3d}; "
+                + conv_line("fwd", count, ms, pms, bd, flops, err)
+                + f"; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; slots {slots[0]:.2f} sorted, "
+                  f"{slots[1]:.2f} spatial")
+        if v in caps[:2]:
+            ts, tp = order_times(
+                lambda: conv.subm_conv_cuda(feats, nbr, w, valid, tables=lp.conv),
+                lambda: conv.subm_conv_cuda(feats, nbr, w, valid, tables=spatial))
+            line += f"; row order: sorted {ts:.4f} ms, spatial {tp:.4f} ms"
+        print(line, flush=True)
+    print(conv_step_line("K1", 53, k1), flush=True)
+    return k1
 
 
 def backward_kernel_phase(cfg, caps, levels, dev) -> tuple:
     """The conv's backward at the 14 shapes of the full-width U-Net: dfeats
-    (K1 on the reversed, transposed weights) and dW (``subm_conv_dw.cu``)
-    against ``torch.autograd.grad`` of the plain conv, for a random dout.
-    Returns the per-step sums (ms, plain ms, bound, max error) of each."""
+    (K1 on the reversed weights) and dW (``subm_conv_dw.cu``) against
+    ``torch.autograd.grad`` of the plain conv, for a random dout; dfeats at
+    levels 0 and 1 in both row orders. Returns the per-step sums of each."""
     import torch
 
     from gapro_tpu_torch.sparse import conv
 
     g = torch.Generator().manual_seed(1)
-    acc = {k: dict(ms=0.0, plain_ms=0.0, bound=0.0, bytes_ms=0.0, ops_ms=0.0, err=0.0)
-           for k in ("dfeats", "dw")}
+    acc = {k: conv_acc() for k in ("dfeats", "dw")}
     stem = (caps[0], 6 if cfg.with_coords else 3)
     print("conv backward vs autograd of the plain conv (per launch; V, Cin, Cout, "
           "launches/step):", flush=True)
@@ -434,10 +667,10 @@ def backward_kernel_phase(cfg, caps, levels, dev) -> tuple:
         w = ((torch.rand(27, cin, cout, generator=g) * 2 - 1) * b).to(dev)
         pf, pw = feats.clone().requires_grad_(), w.clone().requires_grad_()
         want_df, want_dw = torch.autograd.grad(conv.subm_conv(pf, nbr, pw, valid), (pf, pw), dout)
-        w_rev = w.flip(0).transpose(1, 2).contiguous()
-        got_df = conv.subm_conv_dfeats_cuda(dout, nbr, w_rev, valid)
-        got_dw = conv.subm_conv_dw_cuda(feats, nbr, dout)
-        again = conv.subm_conv_dw_cuda(feats, nbr, dout)
+        w_rev = w.flip(0).transpose(1, 2)  # as SubmConvFn passes it
+        got_df = conv.subm_conv_dfeats_cuda(dout, nbr, w_rev, valid, tables=lp.conv)
+        got_dw = conv.subm_conv_dw_cuda(feats, nbr, dout, tables=lp.conv)
+        again = conv.subm_conv_dw_cuda(feats, nbr, dout, tables=lp.conv)
         torch.cuda.synchronize()
         nnz = int((nbr >= 0).sum())
         flops = 2.0 * nnz * cin * cout
@@ -445,11 +678,11 @@ def backward_kernel_phase(cfg, caps, levels, dev) -> tuple:
         line = [f"  V={v:6d} Cin={cin:3d} Cout={cout:3d}"]
         for key, got, want, rtol, n, run, plain, nbytes in (
                 ("dfeats", got_df, want_df, K1_RTOL, n_df,
-                 lambda: conv.subm_conv_dfeats_cuda(dout, nbr, w_rev, valid),
+                 lambda: conv.subm_conv_dfeats_cuda(dout, nbr, w_rev, valid, tables=lp.conv),
                  lambda: conv.subm_conv(dout, nbr, w_rev, valid),
                  v * 27 * 4 + v * cout * 4 + 27 * cin * cout * 4 + v + v * cin * 4),
                 ("dw", got_dw, want_dw, dw_rtol(v), count,
-                 lambda: conv.subm_conv_dw_cuda(feats, nbr, dout),
+                 lambda: conv.subm_conv_dw_cuda(feats, nbr, dout, tables=lp.conv),
                  lambda: conv.subm_conv_dw(feats, nbr, dout),
                  v * 27 * 4 + v * cin * 4 + v * cout * 4 + 27 * cin * cout * 4)):
             scale = max(1.0, float(want.abs().max()))
@@ -458,25 +691,21 @@ def backward_kernel_phase(cfg, caps, levels, dev) -> tuple:
                 fail(f"{key} at V={v} Cin={cin} Cout={cout}: max |err| {err:.3g} > "
                      f"{rtol:.3g} x {scale:.3g}")
             ms, pms = cuda_ms(run, 10), cuda_ms(plain, 3)
-            bms, by = bound_ms(nbytes, flops)
-            a = acc[key]
-            a["ms"] += n * ms
-            a["plain_ms"] += n * pms
-            a["bound"] += n * bms
-            a["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
-            a["ops_ms"] += n * flops / FP32_FLOPS * 1e3
-            a["err"] = max(a["err"], err)
-            line.append(f"{key} x{n}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} "
-                        f"ms ({by}), max|err| {err:.3g}")
+            bd = add_conv(acc[key], n, ms, pms, nbytes, flops, err)
+            line.append(conv_line(key, n, ms, pms, bd, flops, err))
         if not bool((got_df[~valid] == 0).all()):
             fail(f"dfeats at V={v}: invalid rows are not exactly 0")
         if not torch.equal(got_dw, again):
             fail(f"dW at V={v} Cin={cin} Cout={cout} differs between two launches")
+        if v in caps[:2]:
+            spatial = spatial_tables(nbr)
+            ts, tp = order_times(
+                lambda: conv.subm_conv_dfeats_cuda(dout, nbr, w_rev, valid, tables=lp.conv),
+                lambda: conv.subm_conv_dfeats_cuda(dout, nbr, w_rev, valid, tables=spatial))
+            line.append(f"dfeats row order: sorted {ts:.4f} ms, spatial {tp:.4f} ms")
         print("; ".join(line) + f"; {flops / 1e9:.3f} GFLOP; dW bit-identical", flush=True)
     for key, n in (("dfeats", 52), ("dw", 53)):
-        a = acc[key]
-        print(f"{key} per step ({n} launches): kernel {a['ms']:.3f} ms, plain "
-              f"{a['plain_ms']:.3f} ms, bound {a['bound']:.3f} ms", flush=True)
+        print(conv_step_line(key, n, acc[key]), flush=True)
     return acc["dfeats"], acc["dw"]
 
 
@@ -991,6 +1220,11 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    sass = sass_counts()
+    print("tensor-core instructions in the SASS (cuobjdump -sass): "
+          + (json.dumps(sass) if sass else "cuobjdump not found, not counted"), flush=True)
+    if sass and (sass["subm_conv"]["HGMMA"] == 0 or sass["subm_conv_dw"]["HMMA"] == 0):
+        fail(f"a conv kernel was built without its tensor-core instructions: {sass}")
 
     # Full width. Untrained semantics are near uniform over 19 classes (every
     # class below the 0.1 background threshold), which would leave no
@@ -1011,41 +1245,7 @@ def main() -> None:
         prep0 = prepare.prepare_voxel_batch(prepare.upload_point_batch(scenes[0][1], dev),
                                             N_CAP, 1, cfg.num_blocks, cfg.spp_cap, FULL_SHRINK)
     levels = prep0.batch.plan.levels
-    g = torch.Generator().manual_seed(0)
-    k1 = dict(ms=0.0, plain_ms=0.0, bound=0.0, bytes_ms=0.0, ops_ms=0.0, err=0.0)
-    print("K1 subm_conv_cuda vs plain (per launch; V, Cin, Cout, launches/scene):", flush=True)
-    for (v, cin, cout), count in sorted(k1_shape_counts(cfg, caps).items()):
-        lp = levels[caps.index(v)]
-        valid = lp.grid.valid
-        feats = torch.randn(v, cin, generator=g).to(dev) * valid[:, None]
-        b = math.sqrt(3.0 / (27 * cin))
-        w = ((torch.rand(27, cin, cout, generator=g) * 2 - 1) * b).to(dev)
-        got = conv.subm_conv_cuda(feats, lp.subm_nbr, w, valid)
-        want = conv.subm_conv(feats, lp.subm_nbr, w, valid)
-        torch.cuda.synchronize()
-        scale = max(1.0, float(want.abs().max()))
-        err = float((got - want).abs().max())
-        if err > K1_RTOL * scale:
-            fail(f"K1 at V={v} Cin={cin} Cout={cout}: max |err| {err:.3g} > {K1_RTOL} x {scale:.3g}")
-        if not bool((got[~valid] == 0).all()):
-            fail(f"K1 at V={v}: invalid rows are not exactly 0")
-        ms = cuda_ms(lambda: conv.subm_conv_cuda(feats, lp.subm_nbr, w, valid), 10)
-        pms = cuda_ms(lambda: conv.subm_conv(feats, lp.subm_nbr, w, valid), 5)
-        nnz = int((lp.subm_nbr >= 0).sum())
-        nbytes = v * 27 * 4 + v * cin * 4 + 27 * cin * cout * 4 + v + v * cout * 4
-        flops = 2.0 * nnz * cin * cout
-        bms, by = bound_ms(nbytes, flops)
-        print(f"  V={v:6d} Cin={cin:3d} Cout={cout:3d} x{count}: kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB), max|err| {err:.3g}", flush=True)
-        k1["ms"] += count * ms
-        k1["plain_ms"] += count * pms
-        k1["bound"] += count * bms
-        k1["bytes_ms"] += count * nbytes / HBM_BYTES_PER_S * 1e3
-        k1["ops_ms"] += count * flops / FP32_FLOPS * 1e3
-        k1["err"] = max(k1["err"], err)
-    print(f"K1 per scene (53 launches): kernel {k1['ms']:.3f} ms, plain {k1['plain_ms']:.3f} ms, "
-          f"bound {k1['bound']:.3f} ms", flush=True)
+    k1 = k1_phase(cfg, caps, levels, dev)
 
     xyz0 = prep0.batch.coords_float[None].contiguous()
     valid0 = prep0.batch.valid[None].contiguous()
@@ -1197,6 +1397,7 @@ def main() -> None:
                                                                    key=lambda kv: -kv[1]))
           + " ms", flush=True)
     profile_request(run4, f"training step, batch {BATCH}")
+    batch4_row_orders(prepare4(lb4.points, lb4.batch_size).batch.plan, cfg, dev)
 
     tl, t4 = train_launches, trainer["launches"]
     req = [k5["shapes"][f"request round {i}"] for i in (1, 2, 3)]
@@ -1211,10 +1412,14 @@ def main() -> None:
              dict(train_launches=tl["subm_conv"], bwd_launches=tl["subm_conv_dfeats"],
                   bwd_ms=dfeats_acc["ms"], bwd_plain_ms=dfeats_acc["plain_ms"],
                   bwd_bound_ms=dfeats_acc["bound"], bwd_max_abs_err=dfeats_acc["err"],
-                  train_b4_launches=t4["subm_conv"], train_b4_bwd_launches=t4["subm_conv_dfeats"])),
+                  bwd_bound_fp32_ms=dfeats_acc["fp32"], bwd_bound_3xtf32_ms=dfeats_acc["x3"],
+                  bwd_tflops=dfeats_acc["flops"] / dfeats_acc["ms"] / 1e9,
+                  train_b4_launches=t4["subm_conv"], train_b4_bwd_launches=t4["subm_conv_dfeats"],
+                  **conv_extra(k1, sass.get("subm_conv")))),
             ("subm_conv_dw", "gapro_tpu_torch/csrc/subm_conv_dw.cu",
              "gapro_tpu/sparse/window_conv.py:404, gapro_tpu/sparse/window_conv.py:366", dw_acc,
-             tl["subm_conv_dw"], dict(train_b4_launches=t4["subm_conv_dw"])),
+             tl["subm_conv_dw"], dict(train_b4_launches=t4["subm_conv_dw"],
+                                      **conv_extra(dw_acc, sass.get("subm_conv_dw")))),
             ("fps", "gapro_tpu_torch/csrc/fps.cu", "gapro_tpu/ops/fps_pallas.py:42", k4,
              launches["fps"], dict(train_launches=tl["fps"], train_b4_launches=t4["fps"],
                                    test_cli_launches=test_cli["launches"]["fps"])),

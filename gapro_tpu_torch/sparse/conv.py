@@ -102,11 +102,26 @@ def _check_cuda_args(feats, nbr_idx, weights, valid):
     _check_args((("feats", feats), ("weights", weights)), feats, nbr_idx, valid)
 
 
-def subm_conv_cuda(feats, nbr_idx, weights, valid):
-    """K1: ``subm_conv`` as a hand-written CUDA kernel (fp32)."""
+def _pad8(x, dim: int):
+    """``x`` with zeros appended along ``dim`` up to a multiple of 8 columns:
+    the kernels take rows of whole 16-byte pieces and TF32's k of 8."""
+    pad = (-x.shape[dim]) % 8
+    if not pad:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim)
+
+
+def subm_conv_cuda(feats, nbr_idx, weights, valid, tables):
+    """K1: ``subm_conv`` as a hand-written CUDA kernel (3xTF32 on the tensor
+    cores). ``tables`` is the level's ``ConvTables`` (``sparse/plan.py``),
+    built from ``nbr_idx`` and ``valid``; it gives the row order and tile
+    masks. The plain version reads no table."""
     if feats.device.type == "cpu":
         return subm_conv(feats, nbr_idx, weights, valid)
-    out = _launch_k1(feats, nbr_idx, weights, valid)
+    _check_cuda_args(feats, nbr_idx, weights, valid)
+    out = _launch_k1(feats, nbr_idx, weights.transpose(1, 2), valid, tables)
     subm_conv_cuda.launches += 1
     return out
 
@@ -114,12 +129,17 @@ def subm_conv_cuda(feats, nbr_idx, weights, valid):
 subm_conv_cuda.launches = 0
 
 
-def subm_conv_dfeats_cuda(dout, nbr_idx, w_rev, valid):
+def subm_conv_dfeats_cuda(dout, nbr_idx, w_rev, valid, tables):
     """The dfeats half of the backward: K1 on (dout, nbr, w_rev), counted in
-    ``subm_conv_dfeats_cuda.launches`` apart from the forward's launches."""
+    ``subm_conv_dfeats_cuda.launches`` apart from the forward's launches.
+    ``w_rev[k] = W[26 - k]^T``; the kernel reads its transpose, ``W[26 - k]``,
+    which is K-major for this product."""
     if dout.device.type == "cpu":
         return subm_conv(dout, nbr_idx, w_rev, valid)
-    out = _launch_k1(dout, nbr_idx, w_rev, valid)
+    if w_rev.dim() != 3 or w_rev.shape[:2] != (27, dout.shape[1]):
+        raise ValueError(f"w_rev must be [27, {dout.shape[1]}, Cin], got {tuple(w_rev.shape)}")
+    _check_args((("dout", dout),), dout, nbr_idx, valid)
+    out = _launch_k1(dout, nbr_idx, w_rev.transpose(1, 2), valid, tables)
     subm_conv_dfeats_cuda.launches += 1
     return out
 
@@ -127,59 +147,75 @@ def subm_conv_dfeats_cuda(dout, nbr_idx, w_rev, valid):
 subm_conv_dfeats_cuda.launches = 0
 
 
-def _launch_k1(feats, nbr_idx, weights, valid):
-    _check_cuda_args(feats, nbr_idx, weights, valid)
-    v, cin = feats.shape
-    cout = weights.shape[2]
+def _launch_k1(a, nbr_idx, b, valid, tables):
+    """out [V, N] = K1 over a [V, K] and b [27, N, K], a view read through
+    its strides (so W and its transpose need no copy)."""
+    if b.dtype != torch.float32 or b.device != a.device:
+        raise TypeError(f"weights must be float32 on {a.device}")
+    order, masks = tables.rows()
+    v, n, k_real = a.shape[0], b.shape[1], b.shape[2]
+    a = _pad8(a, 1).contiguous()
+    k = a.shape[1]
     lib = cuda_build.load("subm_conv")
     lib.gapro_subm_conv_splits.argtypes = [ctypes.c_int] * 3
     lib.gapro_subm_conv_splits.restype = ctypes.c_int
+    lib.gapro_subm_conv_b_floats.argtypes = [ctypes.c_int] * 2
+    lib.gapro_subm_conv_b_floats.restype = ctypes.c_longlong
     fn = lib.gapro_subm_conv_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    with torch.cuda.device(feats.device):
-        splits = lib.gapro_subm_conv_splits(v, cin, cout)
+    with torch.cuda.device(a.device):
+        splits = lib.gapro_subm_conv_splits(v, k, n)
         if splits < 1:
             raise RuntimeError("subm_conv_cuda: the device query failed")
-        out = torch.empty((v, cout), dtype=torch.float32, device=feats.device)
+        out = torch.empty((v, n), dtype=torch.float32, device=a.device)
         # per-split partial sums of the deep levels (see csrc/subm_conv.cu)
-        partial = (torch.empty((splits, v, cout), dtype=torch.float32, device=feats.device)
+        partial = (torch.empty((splits, v, n), dtype=torch.float32, device=a.device)
                    if splits > 1 else None)
-        err = fn(feats.data_ptr(), nbr_idx.data_ptr(), weights.data_ptr(), valid.data_ptr(),
-                 out.data_ptr(), 0 if partial is None else partial.data_ptr(), v, cin, cout,
-                 splits, torch.cuda.current_stream().cuda_stream)
+        bt = torch.empty(lib.gapro_subm_conv_b_floats(k, n), dtype=torch.float32,
+                         device=a.device)
+        err = fn(
+            a.data_ptr(), nbr_idx.data_ptr(), b.data_ptr(), *b.stride(), k_real,
+            valid.data_ptr(), order.data_ptr(), masks.data_ptr(), out.data_ptr(),
+            0 if partial is None else partial.data_ptr(), bt.data_ptr(), v, k, n, splits,
+            torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "subm_conv_cuda")
     return out
 
 
-def subm_conv_dw_cuda(feats, nbr_idx, dout):
-    """dW kernel (``csrc/subm_conv_dw.cu``, fp32): ``subm_conv_dw`` on the
-    card, deterministic. Counts its launches in ``subm_conv_dw_cuda.launches``."""
+def subm_conv_dw_cuda(feats, nbr_idx, dout, tables):
+    """dW kernel (``csrc/subm_conv_dw.cu``, 3xTF32 on the tensor cores):
+    ``subm_conv_dw`` on the card, deterministic. ``tables`` is the level's
+    ``ConvTables``, built from ``nbr_idx``; it gives the pair lists. Counts
+    its launches in ``subm_conv_dw_cuda.launches``."""
     if feats.device.type == "cpu":
         return subm_conv_dw(feats, nbr_idx, dout)
     _check_args((("feats", feats), ("dout", dout)), feats, nbr_idx)
+    pair_i, pair_j, counts = tables.pairs()
     v, cin = feats.shape
-    cout = dout.shape[1]
+    a, b = _pad8(feats, 1).contiguous(), _pad8(dout, 1).contiguous()
+    k, n = a.shape[1], b.shape[1]
     lib = cuda_build.load("subm_conv_dw")
     lib.gapro_subm_conv_dw_splits.argtypes = [ctypes.c_int] * 3
     lib.gapro_subm_conv_dw_splits.restype = ctypes.c_int
     fn = lib.gapro_subm_conv_dw
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(feats.device):
-        splits = lib.gapro_subm_conv_dw_splits(v, cin, cout)
+        splits = lib.gapro_subm_conv_dw_splits(v, k, n)
         if splits < 1:
             raise RuntimeError("subm_conv_dw_cuda: the device query failed")
-        dw = torch.empty((27, cin, cout), dtype=torch.float32, device=feats.device)
-        # per-split partial dW of the levels with many rows (see csrc/subm_conv_dw.cu)
-        partial = (torch.empty((splits, 27, cin, cout), dtype=torch.float32,
-                               device=feats.device) if splits > 1 else None)
-        err = fn(feats.data_ptr(), nbr_idx.data_ptr(), dout.data_ptr(), dw.data_ptr(),
-                 0 if partial is None else partial.data_ptr(), v, cin, cout, splits,
-                 torch.cuda.current_stream().cuda_stream)
+        dw = torch.empty((27, k, n), dtype=torch.float32, device=feats.device)
+        # per-range partial dW of the levels with many rows (see csrc/subm_conv_dw.cu)
+        partial = (torch.empty((splits, 27, k, n), dtype=torch.float32, device=feats.device)
+                   if splits > 1 else None)
+        err = fn(a.data_ptr(), b.data_ptr(), pair_i.data_ptr(), pair_j.data_ptr(),
+                 counts.data_ptr(), dw.data_ptr(), 0 if partial is None else partial.data_ptr(),
+                 v, k, n, splits, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "subm_conv_dw_cuda")
     subm_conv_dw_cuda.launches += 1
-    return dw
+    return dw if (k, n) == (cin, dout.shape[1]) else dw[:, :cin, :dout.shape[1]].contiguous()
 
 
 subm_conv_dw_cuda.launches = 0
@@ -187,12 +223,14 @@ subm_conv_dw_cuda.launches = 0
 
 class SubmConvFn(torch.autograd.Function):
     """``subm_conv`` with the backward of ``_window_conv_bwd``. The wrappers
-    are looked up at call time, so a caller may swap in the plain versions."""
+    are looked up at call time, so a caller may swap in the plain versions.
+    ``tables`` is the level's ``ConvTables``, shared by the three kernels."""
 
     @staticmethod
-    def forward(ctx, feats, weights, nbr_idx, valid):
+    def forward(ctx, feats, weights, nbr_idx, valid, tables):
         ctx.save_for_backward(feats, weights, nbr_idx, valid)
-        return subm_conv_cuda(feats, nbr_idx, weights, valid)
+        ctx.tables = tables
+        return subm_conv_cuda(feats, nbr_idx, weights, valid, tables=tables)
 
     @staticmethod
     def backward(ctx, dout):
@@ -200,11 +238,11 @@ class SubmConvFn(torch.autograd.Function):
         dout = torch.where(valid[:, None], dout, 0.0).contiguous()
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
-            w_rev = weights.flip(0).transpose(1, 2).contiguous()  # [27, Cout, Cin]
-            dfeats = subm_conv_dfeats_cuda(dout, nbr_idx, w_rev, valid)
+            w_rev = weights.flip(0).transpose(1, 2)  # [27, Cout, Cin], a view of W[26 - k]
+            dfeats = subm_conv_dfeats_cuda(dout, nbr_idx, w_rev, valid, tables=ctx.tables)
         if ctx.needs_input_grad[1]:
-            dw = subm_conv_dw_cuda(feats, nbr_idx, dout)
-        return dfeats, dw, None, None
+            dw = subm_conv_dw_cuda(feats, nbr_idx, dout, tables=ctx.tables)
+        return dfeats, dw, None, None, None
 
 
 def subm_conv_auto(feats, level_plan, weights):
@@ -212,7 +250,7 @@ def subm_conv_auto(feats, level_plan, weights):
     8192-capacity floor existed only for its window tables), with the
     backward of ``SubmConvFn``."""
     return SubmConvFn.apply(feats.contiguous(), weights.contiguous(), level_plan.subm_nbr,
-                            level_plan.grid.valid)
+                            level_plan.grid.valid, level_plan.conv)
 
 
 def down_conv(feats, child_idx, weights, out_valid=None):

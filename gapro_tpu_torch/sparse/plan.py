@@ -12,11 +12,17 @@
   the JAX package rounds them, so that every shape matches. The TPU's
   window tables and z/y-pack tables are not built: no kernel here needs
   them.
+* ``ConvTables``: what the conv kernels read besides the neighbour table,
+  built from it on a level's first conv on the card and kept on the
+  ``LevelPlan``: the row order and tile masks of K1 (``conv_row_order``,
+  ``tile_masks``), and, on the first backward only, the per-offset pair
+  lists of the dW kernel (``pair_lists``). Plain PyTorch at static shapes,
+  with no host sync. None of them changes a table the JAX package has.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import torch
@@ -35,6 +41,77 @@ _TILES = (256, 512)
 _DEFAULT_TILE = 256
 _TILE_FLOOR = 8192
 
+KOFF = 27
+# Output rows of one K1 block (csrc/subm_conv.cu: BM, wgmma's M).
+TILE_ROWS = 64
+
+
+def neighbour_masks(nbr: torch.Tensor) -> torch.Tensor:
+    """[V] int32 whose bit k is set where ``nbr[i, k] >= 0``."""
+    bits = torch.arange(KOFF, dtype=torch.int32, device=nbr.device)
+    return ((nbr >= 0).to(torch.int32) << bits).sum(1, dtype=torch.int32)
+
+
+def conv_row_order(nbr: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[V] int32, the order in which K1 computes the rows: valid rows first,
+    stably sorted by their 27-bit neighbour mask, so that the rows of one
+    tile share their empty offsets."""
+    key = neighbour_masks(nbr) | ((~valid).to(torch.int32) << KOFF)
+    return torch.sort(key, stable=True).indices.to(torch.int32)
+
+
+def tile_masks(nbr: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """[ceil(V / TILE_ROWS)] int32: the OR of the neighbour masks of the
+    rows ``order`` puts in each tile; K1 skips the offsets not in it."""
+    has = (nbr >= 0)[order.long()]
+    pad = (-has.shape[0]) % TILE_ROWS
+    if pad:
+        has = torch.cat([has, has.new_zeros((pad, KOFF))])
+    present = has.view(-1, TILE_ROWS, KOFF).any(1).to(torch.int32)
+    bits = torch.arange(KOFF, dtype=torch.int32, device=nbr.device)
+    return (present << bits).sum(1, dtype=torch.int32)
+
+
+def pair_lists(nbr: torch.Tensor):
+    """Per offset k, the rows i with a neighbour j = nbr[i, k], in increasing
+    row order: (rows [27, V] int32, their neighbours [27, V] int32, counts
+    [27] int32). Entries past an offset's count are 0. Built at fixed
+    capacity: a cumsum of the [27, V] presence and one scatter."""
+    v = nbr.shape[0]
+    has = (nbr >= 0).T
+    counts = has.sum(1, dtype=torch.int32)
+    dest = torch.where(has, has.to(torch.int32).cumsum(1, dtype=torch.int32) - 1, v).long()
+    rows = torch.arange(v, dtype=torch.int32, device=nbr.device).expand(KOFF, v)
+    pi = torch.zeros((KOFF, v + 1), dtype=torch.int32, device=nbr.device)
+    pj = torch.zeros_like(pi)
+    pi.scatter_(1, dest, rows)
+    pj.scatter_(1, dest, nbr.T.contiguous())
+    return pi[:, :v].contiguous(), pj[:, :v].contiguous(), counts
+
+
+class ConvTables:
+    """The conv kernels' tables of one level, each built on first use and
+    kept: ``rows()`` for K1, forward and dfeats alike (both gather through
+    the same ``nbr``); ``pairs()`` for the dW kernel, so inference never
+    builds them."""
+
+    def __init__(self, nbr: torch.Tensor, valid: torch.Tensor):
+        self.nbr, self.valid = nbr, valid
+        self._rows = self._pairs = None
+
+    def rows(self):
+        """(order [V] int32, tile masks [ceil(V / TILE_ROWS)] int32)."""
+        if self._rows is None:
+            order = conv_row_order(self.nbr, self.valid)
+            self._rows = (order, tile_masks(self.nbr, order))
+        return self._rows
+
+    def pairs(self):
+        """``pair_lists(nbr)``."""
+        if self._pairs is None:
+            self._pairs = pair_lists(self.nbr)
+        return self._pairs
+
 
 @dataclass
 class LevelPlan:
@@ -44,6 +121,10 @@ class LevelPlan:
     offset_id: Optional[torch.Tensor] = None  # [V] int32 in [0, 8)
     down_child: Optional[torch.Tensor] = None  # [V_next, 8] int32, -1 absent
     dropped_next: int = 0  # coarse voxels dropped by the next capacity
+    conv: ConvTables = field(init=False, repr=False)  # built lazily, on the card only
+
+    def __post_init__(self):
+        self.conv = ConvTables(self.subm_nbr, self.grid.valid)
 
 
 @dataclass

@@ -23,6 +23,7 @@ from gapro_tpu.sparse.plan import build_unet_plan as jax_build_plan
 from gapro_tpu.sparse.tensor import SparseGrid as JaxGrid
 from gapro_tpu.sparse.window_conv import build_window_tables, subm_conv_window
 from gapro_tpu_torch.sparse import conv as port_conv
+from gapro_tpu_torch.sparse.plan import ConvTables
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CAP, EXTENTS = 1024, (24, 32, 32)
@@ -54,7 +55,8 @@ def _inputs(lp, cin, cout):
 def _port_grads(feats, nbr, w, valid, g, need_dfeats=True):
     tf = torch.tensor(feats, requires_grad=need_dfeats)
     tw = torch.tensor(w, requires_grad=True)
-    out = port_conv.SubmConvFn.apply(tf, tw, torch.tensor(nbr), torch.tensor(valid))
+    tn, tv = torch.tensor(nbr), torch.tensor(valid)
+    out = port_conv.SubmConvFn.apply(tf, tw, tn, tv, ConvTables(tn, tv))
     (out * torch.tensor(g)).sum().backward()
     return (tf.grad.numpy() if need_dfeats else None), tw.grad.numpy()
 

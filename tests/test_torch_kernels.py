@@ -14,12 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from gapro_tpu_torch import data as port_data
 from gapro_tpu_torch.core.segment import segment_mean
-from gapro_tpu_torch.models import dyco
+from gapro_tpu_torch.models import dyco, prepare
 from gapro_tpu_torch.ops import fps as fps_ops
 from gapro_tpu_torch.ops.voxelize import voxelize
 from gapro_tpu_torch.sparse import conv
-from gapro_tpu_torch.sparse.plan import subm_neighbor_table
+from gapro_tpu_torch.sparse.plan import TILE_ROWS, ConvTables, subm_neighbor_table
 from gapro_tpu_torch.sparse.tensor import SparseGrid
 
 CAP, EXTENTS = 1024, (24, 32, 32)
@@ -69,11 +70,14 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
                       conv.subm_conv_dw_cuda.launches, fps_ops.fps_cuda.launches,
                       dyco.dyco_cuda.launches)
     before = counts()
-    assert torch.equal(conv.subm_conv_cuda(feats, nbr, w, grid.valid),
+    tables = ConvTables(nbr, grid.valid)
+    assert torch.equal(conv.subm_conv_cuda(feats, nbr, w, grid.valid, tables),
                        conv.subm_conv(feats, nbr, w, grid.valid))
-    assert torch.equal(conv.subm_conv_dfeats_cuda(dout, nbr, w_rev, grid.valid),
+    assert torch.equal(conv.subm_conv_dfeats_cuda(dout, nbr, w_rev, grid.valid, tables),
                        conv.subm_conv(dout, nbr, w_rev, grid.valid))
-    assert torch.equal(conv.subm_conv_dw_cuda(feats, nbr, dout), conv.subm_conv_dw(feats, nbr, dout))
+    assert torch.equal(conv.subm_conv_dw_cuda(feats, nbr, dout, tables),
+                       conv.subm_conv_dw(feats, nbr, dout))
+    assert tables._rows is None and tables._pairs is None  # the plain versions read no table
     got, want = fps_ops.fps(xyz, valid, 32), fps_ops.fps_masked(xyz, valid, 32)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     dargs = _dyco_args(torch.device("cpu"), 2, 3, 50)
@@ -92,7 +96,7 @@ def test_subm_conv_cuda_matches_plain(cuda_device, cin, cout):
     feats = torch.randn(CAP, cin, generator=g).to(cuda_device)
     w = torch.randn(27, cin, cout, generator=g).to(cuda_device)
     before = conv.subm_conv_cuda.launches
-    got = conv.subm_conv_cuda(feats, nbr, w, grid.valid)
+    got = conv.subm_conv_cuda(feats, nbr, w, grid.valid, ConvTables(nbr, grid.valid))
     torch.cuda.synchronize()
     assert conv.subm_conv_cuda.launches == before + 1
     want = conv.subm_conv(feats, nbr, w, grid.valid)
@@ -114,8 +118,9 @@ def test_subm_conv_dw_cuda_matches_plain(cuda_device, cin, cout):
     feats = (torch.randn(CAP, cin, generator=g).to(cuda_device) * grid.valid[:, None]).contiguous()
     dout = (torch.randn(CAP, cout, generator=g).to(cuda_device) * grid.valid[:, None]).contiguous()
     before = conv.subm_conv_dw_cuda.launches
-    got = conv.subm_conv_dw_cuda(feats, nbr, dout)
-    again = conv.subm_conv_dw_cuda(feats, nbr, dout)
+    tables = ConvTables(nbr, grid.valid)
+    got = conv.subm_conv_dw_cuda(feats, nbr, dout, tables)
+    again = conv.subm_conv_dw_cuda(feats, nbr, dout, tables)
     torch.cuda.synchronize()
     assert conv.subm_conv_dw_cuda.launches == before + 2
     want = conv.subm_conv_dw(feats, nbr, dout)
@@ -125,12 +130,79 @@ def test_subm_conv_dw_cuda_matches_plain(cuda_device, cin, cout):
 
     w = torch.randn(27, cin, cout, generator=g).to(cuda_device)
     tf, tw = feats.clone().requires_grad_(), w.clone().requires_grad_()
-    (conv.SubmConvFn.apply(tf, tw, nbr, grid.valid) * dout).sum().backward()
+    (conv.SubmConvFn.apply(tf, tw, nbr, grid.valid, tables) * dout).sum().backward()
     pf, pw = feats.clone().requires_grad_(), w.clone().requires_grad_()
     (conv.subm_conv(pf, nbr, pw, grid.valid) * dout).sum().backward()
     for a, b in ((tf.grad, pf.grad), (tw.grad, pw.grad)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
     assert (tf.grad[~grid.valid] == 0).all()
+
+
+@pytest.fixture(scope="module")
+def batch2_plan():
+    """The U-Net plan (two levels) of two synthetic scenes in one batch,
+    prepared on the card: 21,000 points each at the bench's voxel scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    scenes = []
+    for seed in (0, 1):
+        s = port_data.make_synthetic_scene(seed=seed, n_objects=4, points_per_object=3000,
+                                           n_floor=6000, n_wall=3000)
+        scenes.append(dict(xyz=s.xyz, rgb=s.rgb, spp=s.spp))
+    pb = prepare.points_to_batch_np(scenes, voxel_scale=50, n_cap=65536)
+    return prepare.prepare_voxel_batch(prepare.upload_point_batch(pb, "cuda"), 65536, 2, 2, 1024,
+                                       0.67).batch.plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lvl,cin,cout", [(0, 6, 32), (0, 32, 32), (1, 64, 64), (1, 96, 96),
+                                          (1, 384, 192)])
+def test_conv_kernels_on_a_batch2_plan(cuda_device, batch2_plan, lvl, cin, cout):
+    """K1, dfeats and dW on the level's own tables (mask-sorted rows, so that
+    tiles hold rows of both scenes; the pair lists) at the model's widths,
+    the stem padded from 6 to 8 columns: K1 and dfeats within 1e-4 of the
+    plain version's scale, invalid rows exactly 0, and equal bit for bit to
+    a launch on tables built anew; dW within ``dw_rtol`` of
+    ``chip_smoke.py`` (8 x 2^-23 sqrt(V), at least 1e-4, of the scale) and
+    bit-identical across two launches."""
+    lp = batch2_plan.levels[lvl]
+    nbr, valid = lp.subm_nbr, lp.grid.valid
+    v = nbr.shape[0]
+    order, _ = lp.conv.rows()
+    n_valid = int(valid.sum())
+    scene = lp.grid.coords[order[:n_valid].long(), 0]
+    scene = torch.cat([scene, scene[-1:].expand(-n_valid % TILE_ROWS)]).view(-1, TILE_ROWS)
+    assert bool(((scene == 0).any(1) & (scene == 1).any(1)).any())
+
+    g = torch.Generator().manual_seed(cin + cout)
+    feats = (torch.randn(v, cin, generator=g).to(cuda_device) * valid[:, None]).contiguous()
+    dout = (torch.randn(v, cout, generator=g).to(cuda_device) * valid[:, None]).contiguous()
+    bound = (3.0 / (27 * cin)) ** 0.5
+    w = ((torch.rand(27, cin, cout, generator=g) * 2 - 1) * bound).to(cuda_device)
+    w_rev = w.flip(0).transpose(1, 2)  # as SubmConvFn passes it
+    launches = lambda: (conv.subm_conv_cuda.launches, conv.subm_conv_dfeats_cuda.launches,
+                        conv.subm_conv_dw_cuda.launches)
+    before = launches()
+    out = conv.subm_conv_cuda(feats, nbr, w, valid, tables=lp.conv)
+    dfeats = conv.subm_conv_dfeats_cuda(dout, nbr, w_rev, valid, tables=lp.conv)
+    dw = conv.subm_conv_dw_cuda(feats, nbr, dout, tables=lp.conv)
+    dw_again = conv.subm_conv_dw_cuda(feats, nbr, dout, tables=lp.conv)
+    torch.cuda.synchronize()
+    assert launches() == (before[0] + 1, before[1] + 1, before[2] + 2)
+
+    for got, want in ((out, conv.subm_conv(feats, nbr, w, valid)),
+                      (dfeats, conv.subm_conv(dout, nbr, w_rev, valid))):
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+        assert (got[~valid] == 0).all()
+    fresh = ConvTables(nbr, valid)
+    assert torch.equal(out, conv.subm_conv_cuda(feats, nbr, w, valid, fresh))
+    assert torch.equal(dfeats, conv.subm_conv_dfeats_cuda(dout, nbr, w_rev, valid, fresh))
+
+    want = conv.subm_conv_dw(feats, nbr, dout)
+    rtol = max(1e-4, 8 * 2.0 ** -23 * v ** 0.5)
+    assert float((dw - want).abs().max()) <= rtol * max(1.0, float(want.abs().max()))
+    assert torch.equal(dw, dw_again)
 
 
 @pytest.mark.gpu

@@ -7,11 +7,14 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
 
 1. kernel phase: runs each kernel against its plain PyTorch version on the
    card at the shapes the full-width ISBNet gives it (K1, the submanifold
-   conv, at every level capacity and channel pair; K4, FPS, at N = 262144 ->
-   2048 and N = 2048 -> 192 / 128 / 64; K5, the dynamic-conv mask head, at
-   (B, Q, S) = (4, 256, 4096), (1, 256, 4096), (1, 192 / 128 / 64, 4096)
-   and (1, 12, 130), and its recompute backward at the first), and times
-   kernel, plain version and bound;
+   conv, at every level capacity and channel pair, and both against the
+   same conv in fp64; K4, FPS, at N = 262144 ->
+   2048 and N = 2048 -> 192 / 128 / 64, and on one item of N = 1048576
+   past what a cluster holds on chip, with its cluster shape and time a
+   step; K5, the dynamic-conv mask head, at (B, Q, S) = (4, 256, 4096),
+   (1, 256, 4096), (1, 192 / 128 / 64, 4096) and (1, 12, 130), and its
+   recompute backward at the first), and times kernel, plain version and
+   bound;
 2. backward-kernel phase: at the same 14 conv shapes, the conv's backward
    on the card (dfeats by K1 on the reversed weights, dW by
    ``subm_conv_dw.cu``) against ``torch.autograd.grad`` of the plain conv,
@@ -25,14 +28,17 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
    counts zeroed just before and read just after;
 5. plain phase: scene 0 again with the plain versions in place of the
    kernels; outputs agree within the stated tolerance and the instance
-   lists are identical;
+   lists are identical; then scene 0's stage-1 ball query (the grid form)
+   on the card against the same call on the CPU, indices equal, timed
+   against the tiled form;
 6. training path: the full-width training step (batch 1, capacity 262144,
    inst_cap 192, AdamW at lr 1e-3, seeded GP labels) on scenes 0, 1 and 2
    after one cold step, through ``make_train_step``, with the counts zeroed
    just before and read just after;
 7. plain training comparison: one step's losses, gradients and BatchNorm
    statistics on scene 0, kernels against plain versions, with the kernel
-   run's assignment injected;
+   run's assignment injected, against a run on inputs one ulp apart; and
+   the backward kernels against theirs on a shared K1 forward;
 8. where the time goes: one request with its layer calls timed, and one
    request and (after phase 6) one training step under torch.profiler
    (device time by kernel, the card's busy share of the wall time);
@@ -43,11 +49,13 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
    AP on 2 scenes, and a resume from the checkpoint it wrote, equal bit for
    bit;
 10. plain comparison at batch 4: one step's losses, kernels against plain
-    versions, with the kernel run's assignment injected;
+    versions, with the kernel run's assignment injected; then K4 against
+    its plain version on that step's FPS input (B = 4, N = 1048576), and
+    its wrapper there under torch.profiler;
 11. the test CLI (gapro_tpu_torch/tools/test.py) on 2 full-size scenes:
     per-scene time and AP, counts zeroed just before and read just after;
-12. one batch-4 training step with its layer calls timed, and one under
-    torch.profiler.
+12. one batch-4 training step with its layer calls timed (the ball query's
+    beside its time in the tiled form), and one under torch.profiler.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -89,7 +97,11 @@ N_CAP = 262144
 # convs each sum their 27 * Cin products in another order, which compounds
 # through the network's depth; 1e-3 of the output's scale.
 PATH_RTOL = 1e-3
-# One K1 launch against its plain version: 1e-4 of the output's scale.
+# One K1 launch against its plain version: 1e-4 of the output's scale; and
+# against the same conv in fp64, a root-mean-square error at most
+# NOISE_FACTOR times the plain fp32 version's. A sum that drifts one way
+# passes the first within 1e-4 and still moves the training step's
+# gradients far past the noise run's (PERF.md §6).
 K1_RTOL = 1e-4
 CONF_SHIFT = 1.5
 MASK_FILL = -1e4  # mask logit of an invalid superpoint (models/dyco.py)
@@ -230,9 +242,13 @@ def computed_slots(masks, cin: int) -> int:
 
 
 def sass_counts() -> dict:
-    """Tensor-core instructions in the SASS of the two conv libraries
-    (``cuobjdump -sass``): HGMMA is wgmma, HMMA mma.sync. None where the
-    toolkit has no cuobjdump."""
+    """Instructions in the SASS (``cuobjdump -sass``) that show a kernel
+    runs as designed: tensor-core instructions in the two conv libraries
+    (HGMMA is wgmma, HMMA mma.sync); in the FPS library the cluster barriers
+    (CGABAR: barrier.cluster arrive and wait), the stores into other blocks'
+    shared memory (STAS: st.async), the mbarrier operations (SYNCS) and the
+    GPU-scope memory barriers (MEMBAR.ALL.GPU). Empty where the toolkit has
+    no cuobjdump."""
     from gapro_tpu_torch import cuda_build
 
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -240,11 +256,12 @@ def sass_counts() -> dict:
     if tool is None:
         return {}
     out = {}
-    for name in ("subm_conv", "subm_conv_dw"):
+    for name, ops in (("subm_conv", ("HGMMA", "HMMA")), ("subm_conv_dw", ("HGMMA", "HMMA")),
+                      ("fps", ("CGABAR", "STAS", "SYNCS", "MEMBAR.ALL.GPU"))):
         sass = subprocess.run([tool, "-sass", str(cuda_build.BUILD_DIR / f"lib{name}.so")],
                               capture_output=True, text=True, timeout=120, check=True).stdout
         lines = sass.splitlines()
-        out[name] = {op: sum(op in line for line in lines) for op in ("HGMMA", "HMMA")}
+        out[name] = {op: sum(op in line for line in lines) for op in ops}
     return out
 
 
@@ -409,14 +426,22 @@ def same_instances(a, b) -> bool:
 
 
 # The layer calls of one request timed by ``layer_times``: (module under
-# gapro_tpu_torch, function looked up there at call time).
+# gapro_tpu_torch, function looked up there at call time, the layer's name).
 LAYERS = (
-    ("models.prepare", "voxelize"), ("models.prepare", "build_unet_plan"),
-    ("sparse.unet", "subm_conv_auto"), ("sparse.unet", "down_conv"),
-    ("sparse.unet", "inverse_conv"), ("ops.fps", "fps"), ("models.aggregator", "ball_query"),
-    ("models.isbnet", "dyco_mlp"), ("models.inference", "isbnet_postprocess"),
-    ("models.inference", "rle_encode_rows"),
+    ("models.prepare", "voxelize", "voxelize"),
+    ("models.prepare", "build_unet_plan", "build_unet_plan"),
+    ("sparse.unet", "subm_conv_auto", "subm_conv_auto"), ("sparse.unet", "down_conv", "down_conv"),
+    ("sparse.unet", "inverse_conv", "inverse_conv"), ("ops.fps", "fps", "fps"),
+    ("models.aggregator", "ball_query_masked", "ball_query"),
+    ("models.isbnet", "dyco_mlp", "dyco_mlp"),
+    ("models.inference", "isbnet_postprocess", "isbnet_postprocess"),
+    ("models.inference", "rle_encode_rows", "rle_encode_rows"),
 )
+BALL_QUERY_LAYER = "models.aggregator.ball_query"
+GRID_MIN_N = 4 * 8192  # ops/ballquery.py:ball_query_masked takes the grid form from here
+# The tiled ball query's layer time in a batch-4 forward before the grid
+# form (PERF.md §5, two runs on an NVIDIA H100 80GB HBM3, 700.00 W).
+BALL_QUERY_TILED_B4_MS = "313.8 / 315.0"
 
 
 def layer_times(fn) -> dict:
@@ -436,10 +461,10 @@ def layer_times(fn) -> dict:
             return out
         return timed
 
-    for mod_name, name in LAYERS:
+    for mod_name, name, layer in LAYERS:
         mod = importlib.import_module(f"gapro_tpu_torch.{mod_name}")
         saved.append((mod, name, getattr(mod, name)))
-        setattr(mod, name, timer(getattr(mod, name), f"{mod_name}.{name}"))
+        setattr(mod, name, timer(getattr(mod, name), f"{mod_name}.{layer}"))
     try:
         fn()
     finally:
@@ -589,6 +614,23 @@ def order_times(run_sorted, run_spatial) -> tuple:
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
+def fp64_drift(got, plain, ref, valid) -> tuple:
+    """K1's and the plain fp32 version's distance from the same function in
+    fp64 over the valid rows, in fp32 ulps of the output's largest entry:
+    the root mean square, and the mean of the error along the sign of the
+    output (a drift towards zero is negative). Returns (K1's rms, the plain
+    version's rms, a summary)."""
+    ref = ref[valid]
+    ulp = float(ref.abs().max()) * 2.0 ** -23
+    rms, out = [], []
+    for name, x in (("K1", got), ("plain", plain)):
+        e = x[valid].double() - ref
+        rms.append(float(e.square().mean().sqrt()) / ulp)
+        along = float((e * ref.sign()).mean()) / ulp
+        out.append(f"{name} rms {rms[-1]:.3g}, along the sign {along:+.3g}")
+    return rms[0], rms[1], "; ".join(out) + " ulp"
+
+
 def k1_phase(cfg, caps, levels, dev) -> dict:
     """K1 against its plain version at the 14 conv shapes of the full-width
     U-Net, timed with its bounds, its TFLOP/s on the pairs that hold a
@@ -619,6 +661,10 @@ def k1_phase(cfg, caps, levels, dev) -> dict:
             fail(f"K1 at V={v} Cin={cin} Cout={cout}: max |err| {err:.3g} > {K1_RTOL} x {scale:.3g}")
         if not bool((got[~valid] == 0).all()):
             fail(f"K1 at V={v}: invalid rows are not exactly 0")
+        ref = conv.subm_conv(feats.double(), nbr, w.double(), valid)
+        rms, plain_rms, drift = fp64_drift(got, want, ref, valid)
+        if rms > NOISE_FACTOR * plain_rms:
+            fail(f"K1 at V={v} Cin={cin} Cout={cout} is further from fp64 than fp32 is: {drift}")
         spatial = spatial_tables(nbr)
         if not torch.equal(conv.subm_conv_cuda(feats, nbr, w, valid, tables=spatial)[~valid],
                            got[~valid]):
@@ -633,7 +679,7 @@ def k1_phase(cfg, caps, levels, dev) -> dict:
         line = (f"  V={v:6d} Cin={cin:3d} Cout={cout:3d}; "
                 + conv_line("fwd", count, ms, pms, bd, flops, err)
                 + f"; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; slots {slots[0]:.2f} sorted, "
-                  f"{slots[1]:.2f} spatial")
+                  f"{slots[1]:.2f} spatial; against fp64: " + drift)
         if v in caps[:2]:
             ts, tp = order_times(
                 lambda: conv.subm_conv_cuda(feats, nbr, w, valid, tables=lp.conv),
@@ -879,11 +925,14 @@ def train_path(cfg, scenes, dev) -> dict:
 def train_plain_compare(cfg, pb, dev) -> None:
     """Scene 0: one step's losses, gradients and BatchNorm statistics from
     the same initial weights through the kernels and through the plain
-    versions, the plain run given the kernel run's assignment."""
+    versions, every other run given the kernel run's assignment. The whole
+    path is held to the 1-ulp noise run as NOISE_FACTOR says; the backward
+    kernels, on a shared K1 forward, to the tolerances themselves."""
     import torch
 
     from gapro_tpu_torch.losses.criterion import CriterionConfig
     from gapro_tpu_torch.models import isbnet, prepare
+    from gapro_tpu_torch.sparse import conv
 
     crit = CriterionConfig(inst_cap=INST_CAP)
     prepared = prepare.prepare_voxel_batch(prepare.upload_point_batch(pb, dev), N_CAP, 1,
@@ -900,6 +949,14 @@ def train_plain_compare(cfg, pb, dev) -> None:
                                        assign=assign)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    k1 = conv.subm_conv_cuda
+    with plain_kernels():
+        conv.subm_conv_cuda = k1  # put back on leaving plain_kernels
+        k1_forward, _, _ = one_step_grads(isbnet.ISBNet(cfg, seed=0, device=dev), prepared, crit,
+                                          assign=assign)
+    backward = compare_step(kern, k1_forward, PATH_RTOLS,
+                            "training step, backward kernels vs plain (both through K1)")
+    print(f"backward kernels, scene 0: agree with their plain versions ({backward})", flush=True)
     summary = compare_step(kern, plain, PATH_RTOLS, "training step, kernels vs plain",
                            noise=noise)
     n_gt = int((assign >= 0).sum())
@@ -938,6 +995,136 @@ def full_config(epochs: int = 1):
     cfg.model["filter_bg_thresh"] = 0.0
     cfg.train["epochs"] = epochs
     return cfg
+
+
+# K4 before its cluster design (PERF.md §6, two runs on an NVIDIA H100 80GB
+# HBM3, 700.00 W): ms a scene in 4 launches, and in a profiled batch-4 step.
+K4_BEFORE_SCENE_MS = "6.665 / 6.640"
+K4_BEFORE_B4_MS = "22.0 / 22.0"
+
+
+@contextlib.contextmanager
+def capture(mod, name: str, calls: list):
+    """Record the positional arguments of every call of ``mod.name``."""
+    f = getattr(mod, name)
+
+    def recorded(*args, **kwargs):
+        calls.append(args)
+        return f(*args, **kwargs)
+
+    setattr(mod, name, recorded)
+    try:
+        yield
+    finally:
+        setattr(mod, name, f)
+
+
+def k4_case(xyz, valid, n_sample: int, what: str) -> dict:
+    """K4 against its plain version on one input, bit for bit, timed (the
+    wrapper: compaction, the kernel, the map back) with its bound; prints
+    the cluster it launched and its time a step."""
+    import torch
+
+    from gapro_tpu_torch.ops import fps as fps_ops
+
+    b, n, _ = xyz.shape
+    got = fps_ops.fps_cuda(xyz, valid, n_sample)
+    want = fps_ops.fps_masked(xyz, valid, n_sample)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        nd = int((got[0] != want[0]).sum())
+        fail(f"K4, {what} (B={b}, N={n}, n={n_sample}): {nd} indices differ from the plain version")
+    ms = cuda_ms(lambda: fps_ops.fps_cuda(xyz, valid, n_sample), 5)
+    cms = cuda_ms(lambda: fps_ops.compact_valid(xyz, valid), 20)
+    cxyz, _, count = fps_ops.compact_valid(xyz, valid)
+    kms = cuda_ms(lambda: fps_ops._launch_compacted(cxyz, count, n_sample), 20)
+    pms = cuda_ms(lambda: fps_ops.fps_masked(xyz, valid, n_sample), 1)
+    counts = valid.sum(1).tolist()
+    shape = fps_ops.launch_shape(n)
+    fit = fps_ops._max_active_clusters(n)
+    if fit < b:
+        fail(f"K4, {what}: {b} clusters of {shape['cluster']} blocks, only {fit} fit at once")
+    nbytes = b * (n * 12 + n + n_sample * 4)
+    ops = 10.0 * sum(counts) * (n_sample - 1)  # 3 sub, 3 mul, 2 add, min, compare
+    bms, by = bound_ms(nbytes, ops)
+    spill = [max(c - shape["on_chip"], 0) for c in counts]
+    print(f"  {what}: B={b} N={n} n={n_sample}, valid {counts}; clusters of {shape['cluster']} "
+          f"blocks, {b * shape['cluster']} blocks ({fit} such clusters fit at once), "
+          f"{shape['on_chip']} points on chip an item, past it {spill}; wrapper {ms:.4f} ms: "
+          f"compaction {cms:.4f} ms, the kernel alone {kms:.4f} ms "
+          f"({kms * 1e3 / max(n_sample - 1, 1):.3f} us a step), the map back and launches "
+          f"{ms - cms - kms:.4f} ms; plain {pms:.4f} ms, bound {bms:.5f} ms ({by}; the wrapper "
+          f"{ms / bms:.1f}x it), indices equal", flush=True)
+    return dict(ms=ms, kernel_ms=kms, compact_ms=cms, plain_ms=pms, bound=bms,
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_FLOPS * 1e3,
+                cluster=shape["cluster"], idx=got[0])
+
+
+def k4_phase(prep0, cfg, dev) -> dict:
+    """K4 at a request's shapes (N = 262144 -> 2048 on scene 0's voxels,
+    then N = 2048 -> 192 / 128 / 64 on those samples), and on one item of
+    N = 1048576 whose valid points exceed what a cluster holds on chip
+    (n = 64, to keep the plain run short). Returns the per-scene sums with
+    the past-capacity case under ``spill``."""
+    import torch
+
+    xyz0 = prep0.batch.coords_float[None].contiguous()
+    valid0 = prep0.batch.valid[None].contiguous()
+    k4 = dict(ms=0.0, kernel_ms=0.0, plain_ms=0.0, bound=0.0, bytes_ms=0.0, ops_ms=0.0, err=0.0,
+              clusters=[])
+    print("K4 fps_cuda vs plain:", flush=True)
+    first_idx = None
+    for n_pts, n_sample in [(N_CAP, cfg.n_sample_pa1)] + [(cfg.n_sample_pa1, r) for r in ROUNDS]:
+        if n_pts == N_CAP:
+            xyz, valid = xyz0, valid0
+        else:
+            xyz = xyz0[0, first_idx[0].long()][None].contiguous()
+            valid = torch.ones(1, n_pts, dtype=torch.bool, device=dev)
+        r = k4_case(xyz, valid, n_sample, f"request, N={n_pts} -> {n_sample}")
+        if first_idx is None:
+            first_idx = r["idx"]
+        for key in ("ms", "kernel_ms", "plain_ms", "bound", "bytes_ms", "ops_ms"):
+            k4[key] += r[key]
+        k4["clusters"].append(r["cluster"])
+    print(f"K4 per scene (4 launches): wrapper {k4['ms']:.3f} ms (before the cluster design: "
+          f"{K4_BEFORE_SCENE_MS} ms), the kernel alone {k4['kernel_ms']:.3f} ms, plain "
+          f"{k4['plain_ms']:.3f} ms, bound {k4['bound']:.4f} ms", flush=True)
+    g = torch.Generator().manual_seed(3)
+    lo, hi = xyz0[0][valid0[0]].amin(0).cpu(), xyz0[0][valid0[0]].amax(0).cpu()
+    xyz = (lo + (hi - lo) * torch.rand(1, 4 * N_CAP, 3, generator=g)).to(dev)
+    valid = (torch.rand(1, 4 * N_CAP, generator=g) < 0.4).to(dev)  # about 419000 valid
+    k4["spill"] = k4_case(xyz, valid, 64, "one item past the on-chip capacity")
+    return k4
+
+
+def ball_query_phase(model, scene, dev) -> None:
+    """Scene 0's stage-1 ball query (N = 262144: the grid form) on the card
+    against the same call on the CPU, indices and counts equal; then the
+    grid and the tiled form timed at that call, and the queries whose
+    neighbours the 512-candidate cap changes."""
+    import torch
+
+    from gapro_tpu_torch.models import aggregator
+    from gapro_tpu_torch.ops import ballquery
+
+    calls = []
+    with capture(aggregator, "ball_query_masked", calls):
+        serve(model, *scene, dev)
+    args = calls[0]
+    q, p, qv, pv, radius, k = args
+    if p.shape[1] < GRID_MIN_N:
+        fail(f"the stage-1 ball query ran at N={p.shape[1]}, below the grid form's {GRID_MIN_N}")
+    got = ballquery.ball_query_masked(*args)
+    want = ballquery.ball_query_masked(q.cpu(), p.cpu(), qv.cpu(), pv.cpu(), radius, k)
+    for a, w, name in zip(got, want, ("indices", "counts")):
+        if not torch.equal(a.cpu(), w):
+            fail(f"grid ball query, card vs CPU: {int((a.cpu() != w).sum())} {name} differ")
+    grid_ms = cuda_ms(lambda: ballquery.ball_query_grid(*args), 5)
+    tiled_ms = cuda_ms(lambda: ballquery.ball_query_tiled(*args), 1)
+    capped = int((got[0] != ballquery.ball_query_tiled(*args)[0]).any(-1).sum())
+    print(f"ball query, scene 0 stage 1 (Q={q.shape[1]}, N={p.shape[1]}, {int(pv.sum())} valid, "
+          f"radius {radius}, k={k}): the grid form on the card equals the CPU run (indices and "
+          f"counts); grid {grid_ms:.3f} ms, tiled {tiled_ms:.3f} ms a call; the cap changes the "
+          f"neighbours of {capped} of {int(qv.sum())} queries", flush=True)
 
 
 def dyco_inputs(dev, b, q, s, m=32, seed=0):
@@ -1114,11 +1301,12 @@ def trainer_phase(dev, work_dir: str) -> dict:
 def trainer_plain_compare(cfg, train_ds, dev):
     """One batch-4 step's losses through the kernels and through the plain
     versions (the plain run given the kernel run's assignment), from the
-    same weights, on the trainer's first batch. Returns the prepared batch
-    and its ``prepare`` for the profile."""
+    same weights, on the trainer's first batch. Returns the prepared batch,
+    its ``prepare`` for the profile, and the kernel run's FPS input."""
     import torch
 
     from gapro_tpu_torch.data.dataset import build_dataloader
+    from gapro_tpu_torch.ops import fps as fps_ops
     from gapro_tpu_torch.tools import train as port_train
     from gapro_tpu_torch.train import step
 
@@ -1128,13 +1316,14 @@ def trainer_plain_compare(cfg, train_ds, dev):
     loader.close()  # shuts the workers down
     prepare = port_train.make_prepare(cfg, dev)
     prepared = prepare(lb.points, lb.batch_size)
-    runs = {}
+    runs, fps_calls = {}, []
     for name in ("kernels", "plain"):
         model, crit = port_train.build_model(cfg, dev, seed=0)
         model.train()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch.no_grad(), (plain_kernels() if name == "plain" else contextlib.nullcontext()):
+        with torch.no_grad(), (plain_kernels() if name == "plain"
+                               else capture(fps_ops, "fps", fps_calls)):
             _, (losses, aux) = step._loss_fn(model, prepared, crit,
                                              assign=runs["kernels"][1] if runs else None)
         torch.cuda.synchronize()
@@ -1163,7 +1352,7 @@ def trainer_plain_compare(cfg, train_ds, dev):
           f"{pms:.1f} ms; every loss within {PATH_RTOL} ({len(lk)} terms, "
           f"{int((assign >= 0).sum())} matched instances over {lb.batch_size} scenes)",
           flush=True)
-    return lb, prepare
+    return lb, prepare, fps_calls[0]
 
 
 def test_cli_phase(model, dev) -> dict:
@@ -1221,10 +1410,12 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     sass = sass_counts()
-    print("tensor-core instructions in the SASS (cuobjdump -sass): "
+    print("tensor-core and cluster-barrier instructions in the SASS (cuobjdump -sass): "
           + (json.dumps(sass) if sass else "cuobjdump not found, not counted"), flush=True)
     if sass and (sass["subm_conv"]["HGMMA"] == 0 or sass["subm_conv_dw"]["HMMA"] == 0):
         fail(f"a conv kernel was built without its tensor-core instructions: {sass}")
+    if sass and (sass["fps"]["CGABAR"] == 0 or sass["fps"]["STAS"] == 0):
+        fail(f"K4 was built without its cluster barriers or st.async: {sass['fps']}")
 
     # Full width. Untrained semantics are near uniform over 19 classes (every
     # class below the 0.1 background threshold), which would leave no
@@ -1247,39 +1438,7 @@ def main() -> None:
     levels = prep0.batch.plan.levels
     k1 = k1_phase(cfg, caps, levels, dev)
 
-    xyz0 = prep0.batch.coords_float[None].contiguous()
-    valid0 = prep0.batch.valid[None].contiguous()
-    k4 = dict(ms=0.0, plain_ms=0.0, bound=0.0, bytes_ms=0.0, ops_ms=0.0, err=0.0)
-    print("K4 fps_cuda vs plain (N -> n):", flush=True)
-    first_idx = None
-    for n_pts, n_sample in [(N_CAP, cfg.n_sample_pa1)] + [(cfg.n_sample_pa1, r) for r in ROUNDS]:
-        if n_pts == N_CAP:
-            xyz, valid = xyz0, valid0
-        else:
-            xyz = xyz0[0, first_idx[0].long()][None].contiguous()
-            valid = torch.ones(1, n_pts, dtype=torch.bool, device=dev)
-        got = fps_ops.fps_cuda(xyz, valid, n_sample)
-        want = fps_ops.fps_masked(xyz, valid, n_sample)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            nd = int((got[0] != want[0]).sum())
-            fail(f"K4 at N={n_pts}, n={n_sample}: {nd} indices differ from the plain version")
-        if first_idx is None:
-            first_idx = got[0]
-        ms = cuda_ms(lambda: fps_ops.fps_cuda(xyz, valid, n_sample), 5)
-        pms = cuda_ms(lambda: fps_ops.fps_masked(xyz, valid, n_sample), 1)
-        n_valid = int(valid.sum())
-        nbytes = n_pts * 12 + n_pts + n_sample * 4
-        ops = 10.0 * n_valid * (n_sample - 1)  # 3 sub, 3 mul, 2 add, min, compare
-        bms, by = bound_ms(nbytes, ops)
-        print(f"  N={n_pts:6d} n={n_sample:4d}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bms:.5f} ms ({by}), indices equal", flush=True)
-        k4["ms"] += ms
-        k4["plain_ms"] += pms
-        k4["bound"] += bms
-        k4["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-        k4["ops_ms"] += ops / FP32_FLOPS * 1e3
-    print(f"K4 per scene (4 launches): kernel {k4['ms']:.3f} ms, plain {k4['plain_ms']:.3f} ms, "
-          f"bound {k4['bound']:.4f} ms", flush=True)
+    k4 = k4_phase(prep0, cfg, dev)
     k5 = dyco_kernel_phase(dev)
 
     # ---- 2. backward-kernel phase -------------------------------------------
@@ -1353,6 +1512,7 @@ def main() -> None:
     print(f"plain: scene 0 through the plain versions agrees (discrete equal, floats within "
           f"{err:.3g} of scale, {len(inst_plain)} identical instances)", flush=True)
     del results, out_plain
+    ball_query_phase(model, scenes[0], dev)
 
     # ---- 6. training path: full width, 3 steps, then one profiled ----------
     train = train_path(cfg, scenes, dev)
@@ -1369,6 +1529,8 @@ def main() -> None:
           + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()) + " ms; "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(layers.items(), key=lambda kv: -kv[1]))
           + " ms", flush=True)
+    print(f"ball_query layer, request (scene 2, both stages): {layers[BALL_QUERY_LAYER]:.3f} ms",
+          flush=True)
     profile_request(lambda: serve(model, *scenes[1], dev), "request, scene 1")
     del train
 
@@ -1379,7 +1541,16 @@ def main() -> None:
     shutil.rmtree(work_dir)
 
     # ---- 10. plain comparison at batch 4: one step's losses -----------------
-    lb4, prepare4 = trainer_plain_compare(trainer["cfg"], trainer["train_ds"], dev)
+    lb4, prepare4, fps_in4 = trainer_plain_compare(trainer["cfg"], trainer["train_ds"], dev)
+    print(f"K4 at the batch-{BATCH} step's input:", flush=True)
+    k4_b4 = k4_case(*fps_in4, f"batch-{BATCH} step, stage 1")
+    print(f"K4 in the batch-{BATCH} step (1 launch): wrapper {k4_b4['ms']:.3f} ms (before the "
+          f"cluster design: {K4_BEFORE_B4_MS} ms in the profiled step), compaction "
+          f"{k4_b4['compact_ms']:.3f} ms, the kernel alone {k4_b4['kernel_ms']:.3f} ms, plain "
+          f"{k4_b4['plain_ms']:.3f} ms, bound {k4_b4['bound']:.4f} ms", flush=True)
+    profile_request(lambda: fps_ops.fps_cuda(*fps_in4), f"K4's wrapper at the batch-{BATCH} input",
+                    top=8)
+    del fps_in4
 
     # ---- 11. the test CLI on full-size scenes --------------------------------
     test_cli = test_cli_phase(model, dev)
@@ -1396,6 +1567,8 @@ def main() -> None:
           "call): " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(layers.items(),
                                                                    key=lambda kv: -kv[1]))
           + " ms", flush=True)
+    print(f"ball_query layer, batch-{BATCH} forward: {layers[BALL_QUERY_LAYER]:.3f} ms (the tiled "
+          f"form before: {BALL_QUERY_TILED_B4_MS} ms)", flush=True)
     profile_request(run4, f"training step, batch {BATCH}")
     batch4_row_orders(prepare4(lb4.points, lb4.batch_size).batch.plan, cfg, dev)
 
@@ -1408,7 +1581,8 @@ def main() -> None:
     kernels = []
     for name, src, rep, k, n, extra in (
             ("subm_conv", "gapro_tpu_torch/csrc/subm_conv.cu",
-             "gapro_tpu/sparse/window_conv.py:263", k1, launches["subm_conv"],
+             "gapro_tpu/sparse/window_conv.py:263, gapro_tpu/sparse/pallas_conv.py:41", k1,
+             launches["subm_conv"],
              dict(train_launches=tl["subm_conv"], bwd_launches=tl["subm_conv_dfeats"],
                   bwd_ms=dfeats_acc["ms"], bwd_plain_ms=dfeats_acc["plain_ms"],
                   bwd_bound_ms=dfeats_acc["bound"], bwd_max_abs_err=dfeats_acc["err"],
@@ -1422,7 +1596,16 @@ def main() -> None:
                                       **conv_extra(dw_acc, sass.get("subm_conv_dw")))),
             ("fps", "gapro_tpu_torch/csrc/fps.cu", "gapro_tpu/ops/fps_pallas.py:42", k4,
              launches["fps"], dict(train_launches=tl["fps"], train_b4_launches=t4["fps"],
-                                   test_cli_launches=test_cli["launches"]["fps"])),
+                                   test_cli_launches=test_cli["launches"]["fps"],
+                                   kernel_alone_ms=k4["kernel_ms"], clusters=k4["clusters"],
+                                   train_b4_cluster=k4_b4["cluster"], train_b4_ms=k4_b4["ms"],
+                                   train_b4_kernel_alone_ms=k4_b4["kernel_ms"],
+                                   train_b4_plain_ms=k4_b4["plain_ms"],
+                                   train_b4_bound_ms=k4_b4["bound"],
+                                   past_on_chip_ms=k4["spill"]["ms"],
+                                   past_on_chip_plain_ms=k4["spill"]["plain_ms"],
+                                   past_on_chip_bound_ms=k4["spill"]["bound"],
+                                   sass=sass.get("fps"))),
             ("dyco", "gapro_tpu_torch/csrc/dyco.cu", "gapro_tpu/models/dyco.py:100", k5_req,
              launches["dyco"],
              dict(train_launches=tl["dyco"], train_b4_launches=t4["dyco"],

@@ -59,6 +59,14 @@
 // padded tile (a stride of 36 floats makes the loads conflict-free) and
 // splits it in registers.
 //
+// The tensor cores do not round their fp32 sums to nearest: a sum kept in
+// the wgmma accumulator over the whole reduction (up to 2268 accumulating
+// wgmmas, at Cin = 224) drifted towards zero, further from the exact sum
+// than fp32 adds in any order, and enough to move a training step's
+// gradients (PERF.md §6). So each chunk's 12 wgmmas start from a zero
+// accumulator, and the chunk sums are added in fp32 on the CUDA cores
+// (round to nearest), in chunk order.
+//
 // The deep levels have too few tiles to fill 132 SMs, so the chunks of a
 // tile may be split over gridDim.z blocks (gapro_subm_conv_splits picks
 // how many); split blocks write partial sums and a second kernel adds them
@@ -136,8 +144,10 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d[64 x 32] += a[64 x 8] (registers, TF32) * b[8 x 32] (shared, TF32, K-major)
-__device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+// d[64 x 32] = a[64 x 8] (registers, TF32) * b[8 x 32] (shared, TF32, K-major)
+// + (keep ? d : 0)
+__device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                      int keep) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -149,11 +159,13 @@ __device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4], ui
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(keep));
 }
 
-// d[64 x 64] += a[64 x 8] (registers, TF32) * b[8 x 64] (shared, TF32, K-major)
-__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+// d[64 x 64] = a[64 x 8] (registers, TF32) * b[8 x 64] (shared, TF32, K-major)
+// + (keep ? d : 0)
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                      int keep) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -168,7 +180,7 @@ __device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], ui
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(keep));
 }
 
 // The B operand, split and laid out as the main kernel's shared memory
@@ -269,9 +281,9 @@ subm_conv_kernel(const float* __restrict__ a, const int32_t* __restrict__ nbr,
     for (int e = tid; e < BN * 8 * 2; e += NT) cp_async16(b_s + 16 * e, src + 4 * e, true);
   };
 
-  float acc[BN / 2];
+  float acc[BN / 2], sum[BN / 2];  // one chunk's sum (tensor cores), the running sum
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.f;
 
   const int ar = 64 * wg + 16 * ((tid >> 5) & 3) + g;  // this thread's A rows: ar, ar + 8
   const float* as = reinterpret_cast<const float*>(smem + L::B_BYTES);
@@ -294,17 +306,22 @@ subm_conv_kernel(const float* __restrict__ a, const int32_t* __restrict__ nbr,
       wgmma_fence();
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
-        wgmma(acc, alo[s], desc_sw128(b_hi + s * 32));
-        wgmma(acc, ahi[s], desc_sw128(b_lo + s * 32));
-        wgmma(acc, ahi[s], desc_sw128(b_hi + s * 32));
+        wgmma(acc, alo[s], desc_sw128(b_hi + s * 32), s > 0);  // the chunk's sum starts at 0
+        wgmma(acc, ahi[s], desc_sw128(b_lo + s * 32), 1);
+        wgmma(acc, ahi[s], desc_sw128(b_hi + s * 32), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();  // the A registers and the stage are free again
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        asm volatile("" : "+f"(acc[i])::"memory");  // read acc only after the wait
+        sum[i] = __fadd_rn(sum[i], acc[i]);
+      }
     }
     __syncthreads();  // ... in both warpgroups
   }
 
-  // acc[4i + 2h + e] = D[ar - 64 wg + 8h][8i + 2 t4 + e] of the warpgroup's 64 x BN tile
+  // sum[4i + 2h + e] = D[ar - 64 wg + 8h][8i + 2 t4 + e] of the warpgroup's 64 x BN tile
   const bool split = gridDim.z > 1;
   const int n0 = blockIdx.y * BN;
 #pragma unroll
@@ -318,7 +335,7 @@ subm_conv_kernel(const float* __restrict__ a, const int32_t* __restrict__ nbr,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = n0 + 8 * i + 2 * t4 + e;
-        if (col < N) dst[col] = split || ok ? acc[4 * i + 2 * h + e] : 0.f;
+        if (col < N) dst[col] = split || ok ? sum[4 * i + 2 * h + e] : 0.f;
       }
   }
 }

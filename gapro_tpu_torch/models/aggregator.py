@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ..ops import fps as fps_ops
-from ..ops.ballquery import ball_query
+from ..ops.ballquery import ball_query_masked
 from .common import ConvBlock1d, SharedMLP, jabs
 
 
@@ -71,7 +71,7 @@ class LocalAggregator(nn.Module):
         fps_dims = _take(dim_boxes, fps_inds)
         fps_boxes = _take(boxes, fps_inds)
 
-        nbr, _ = ball_query(fps_locs, locs, s_valid, valid, self.radius, self.n_neighbor)
+        nbr, _ = ball_query_masked(fps_locs, locs, s_valid, valid, self.radius, self.n_neighbor)
         g_xyz = (_group(locs, nbr) - fps_locs[:, :, None, :]) / self.radius
         g_dim = jabs(_group(dim_boxes, nbr) - fps_dims[:, :, None, :])
         g_feat = torch.cat([g_xyz, g_dim, _group(feats, nbr)], -1)
@@ -79,7 +79,7 @@ class LocalAggregator(nn.Module):
         identity = x
 
         r2 = 2 * self.radius
-        nbr2, _ = ball_query(fps_locs, fps_locs, s_valid, s_valid, r2, self.n_neighbor_post)
+        nbr2, _ = ball_query_masked(fps_locs, fps_locs, s_valid, s_valid, r2, self.n_neighbor_post)
         g2_xyz = (_group(fps_locs, nbr2) - fps_locs[:, :, None, :]) / r2
         g2_dim = jabs(_group(fps_dims, nbr2) - fps_dims[:, :, None, :])
         g2_feat = torch.cat([g2_xyz, g2_dim, _group(x, nbr2)], -1)

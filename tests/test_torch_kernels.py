@@ -205,13 +205,42 @@ def test_conv_kernels_on_a_batch2_plan(cuda_device, batch2_plan, lvl, cin, cout)
     assert torch.equal(dw, dw_again)
 
 
+def _fps_case(case):
+    """(xyz [B, N, 3], valid [B, N], n_sample) on the CPU for K4's cases."""
+    g = torch.Generator().manual_seed(len(case))
+    shapes = {"random_2048": (2, 2048, 192), "random_40000": (2, 40000, 256),
+              "duplicates": (2, 3000, 256), "few_valid": (1, 2048, 64),
+              "no_valid_item": (2, 20000, 64), "ragged_counts": (3, 40000, 128),
+              "past_on_chip": (2, 300000, 24)}
+    b, n, k = shapes[case]
+    xyz = torch.randn(b, n, 3, generator=g)
+    valid = torch.rand(b, n, generator=g) > 0.2
+    if case == "duplicates":  # a 6^3 lattice, every site many times: exact ties
+        xyz = torch.randint(0, 6, (b, n, 3), generator=g).float()
+    elif case == "few_valid":
+        valid = torch.zeros(b, n, dtype=torch.bool)
+        valid[0, 700:705] = True
+    elif case == "no_valid_item":
+        valid[1] = False
+    elif case == "ragged_counts":
+        valid[1, 600:] = False
+        valid[2] = False
+        valid[2, 39990:] = True
+    elif case == "past_on_chip":  # item 0 holds more than the 262144 points on chip
+        valid[0] = torch.rand(n, generator=g) > 0.03
+        valid[1, 100000:] = False
+    return xyz, valid, k
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,k", [(2048, 192), (40000, 256)])
-def test_fps_cuda_matches_plain(cuda_device, n, k):
+@pytest.mark.parametrize("case", ["random_2048", "random_40000", "duplicates", "few_valid",
+                                  "no_valid_item", "ragged_counts", "past_on_chip"])
+def test_fps_cuda_matches_plain(cuda_device, case):
     """K4's indices equal the plain version's, bit for bit."""
-    g = torch.Generator().manual_seed(n)
-    xyz = torch.randn(2, n, 3, generator=g).to(cuda_device)
-    valid = (torch.rand(2, n, generator=g) > 0.2).to(cuda_device)
+    xyz, valid, k = (a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+                     for a in _fps_case(case))
+    if case == "past_on_chip":
+        assert int(valid[0].sum()) > fps_ops.launch_shape(xyz.shape[1])["on_chip"]
     before = fps_ops.fps_cuda.launches
     got = fps_ops.fps_cuda(xyz, valid, k)
     torch.cuda.synchronize()

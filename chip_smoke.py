@@ -12,13 +12,15 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
    2048 and N = 2048 -> 192 / 128 / 64, and on one item of N = 1048576
    past what a cluster holds on chip, with its cluster shape and time a
    step; K5, the dynamic-conv mask head, at (B, Q, S) = (4, 256, 4096),
-   (1, 256, 4096), (1, 192 / 128 / 64, 4096) and (1, 12, 130), and its
-   recompute backward at the first), and times kernel, plain version and
-   bound;
+   (1, 256, 4096), (1, 192 / 128 / 64, 4096), (2, 256, 4096) with one item
+   holding no valid superpoint and (1, 12, 130), both against the same
+   function in fp64, and its recompute backward at the first), and times
+   kernel, plain version and bound;
 2. backward-kernel phase: at the same 14 conv shapes, the conv's backward
    on the card (dfeats by K1 on the reversed weights, dW by
    ``subm_conv_dw.cu``) against ``torch.autograd.grad`` of the plain conv,
-   dW bit-identical across two launches, timed like phase 1;
+   dW bit-identical across two launches and, with the plain dW, against
+   the same dW in fp64, timed like phase 1;
 3. reference phase: the tiny configuration on the card (kernels) against
    the same model on the CPU (plain versions), inference and one training
    step; the CPU test suite holds the CPU run against the JAX package;
@@ -133,12 +135,17 @@ NOISE_FACTOR = 2.0
 # K5 against its plain version: the JAX package's own tolerance for the same
 # function summed in another order (tests/test_dyco_pallas.py).
 K5_RTOL, K5_ATOL = 2e-5, 2e-4
-# K5's launches on the paths: (B, Q, S, what). S is spp_cap; a batch-4
-# training step, a validation scene (one round of n_queries), the three
-# rounds of a request, and a ragged shape.
-DYCO_SHAPES = ((4, 256, 4096, "training step, batch 4"), (1, 256, 4096, "validation scene"),
-               (1, 192, 4096, "request round 1"), (1, 128, 4096, "request round 2"),
-               (1, 64, 4096, "request round 3"), (1, 12, 130, "ragged"))
+# K5's launches on the paths: (B, Q, S, items with no valid superpoint,
+# what). S is spp_cap; a batch-4 training step, a validation scene (one
+# round of n_queries), the three rounds of a request, an item with no valid
+# superpoint (as items 2 and 3 of the batch-4 step, ROADMAP.md §3), and a
+# ragged shape.
+DYCO_SHAPES = ((4, 256, 4096, 0, "training step, batch 4"),
+               (1, 256, 4096, 0, "validation scene"),
+               (1, 192, 4096, 0, "request round 1"), (1, 128, 4096, 0, "request round 2"),
+               (1, 64, 4096, 0, "request round 3"),
+               (2, 256, 4096, 1, "item 1 with no valid superpoint"),
+               (1, 12, 130, 0, "ragged"))
 # The full-size bench scene (tools/bench_model.py), about 240k points.
 FULL_SCENE = dict(n_objects=12, points_per_object=15000, n_floor=40000, n_wall=20000)
 BATCH = 4  # configs/isbnet_scannetv2.yaml: train.batch_size
@@ -197,16 +204,36 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernels: tuple, iters: int = 10) -> float:
+    """The device time a call of ``fn`` spends in the kernels whose names
+    hold one of ``kernels``, from torch.profiler over ``iters`` calls: the
+    kernel time without the wrapper's host work (0 if the profiler records
+    no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(k in e.name for k in kernels)) / 1e3 / iters
+
+
 def bound_ms(nbytes: float, ops: float, rate: float = FP32_FLOPS):
     b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return max(b, o), ("bytes" if b >= o else "operations")
 
 
-def conv_bounds(nbytes: float, flops: float) -> dict:
-    """A conv kernel's bounds for the function's ``flops`` on ``nbytes``:
-    the one it is held to (those operations at the TF32 tensor-core rate),
-    and, beside it, fp32 on the CUDA cores and the cost of the 3xTF32 form
-    the kernels take (three TF32 products for each fp32 one)."""
+def tc_bounds(nbytes: float, flops: float) -> dict:
+    """The bounds of a kernel on the tensor cores (K1, dW, K5) for the
+    function's ``flops`` on ``nbytes``: the one it is held to (those
+    operations at the TF32 tensor-core rate), and, beside it, fp32 on the
+    CUDA cores and the cost of the 3xTF32 form the kernels take (three TF32
+    products for each fp32 one)."""
     bms, by = bound_ms(nbytes, flops, TF32_FLOPS)
     return dict(bound=bms, by=by, fp32=bound_ms(nbytes, flops)[0],
                 x3=bound_ms(nbytes, TF32_PASSES * flops, TF32_FLOPS)[0])
@@ -243,8 +270,8 @@ def computed_slots(masks, cin: int) -> int:
 
 def sass_counts() -> dict:
     """Instructions in the SASS (``cuobjdump -sass``) that show a kernel
-    runs as designed: tensor-core instructions in the two conv libraries
-    (HGMMA is wgmma, HMMA mma.sync); in the FPS library the cluster barriers
+    runs as designed: tensor-core instructions in the two conv libraries and
+    K5's (HGMMA is wgmma, HMMA mma.sync); in the FPS library the cluster barriers
     (CGABAR: barrier.cluster arrive and wait), the stores into other blocks'
     shared memory (STAS: st.async), the mbarrier operations (SYNCS) and the
     GPU-scope memory barriers (MEMBAR.ALL.GPU). Empty where the toolkit has
@@ -257,6 +284,7 @@ def sass_counts() -> dict:
         return {}
     out = {}
     for name, ops in (("subm_conv", ("HGMMA", "HMMA")), ("subm_conv_dw", ("HGMMA", "HMMA")),
+                      ("dyco", ("HGMMA", "HMMA")),
                       ("fps", ("CGABAR", "STAS", "SYNCS", "MEMBAR.ALL.GPU"))):
         sass = subprocess.run([tool, "-sass", str(cuda_build.BUILD_DIR / f"lib{name}.so")],
                               capture_output=True, text=True, timeout=120, check=True).stdout
@@ -498,7 +526,10 @@ def profile_request(fn, what: str, top: int = 12, attempts: int = 3) -> None:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         after = read_counts()
-        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        # device kernels; a named range's span on the device timeline (the
+        # optimizer's step, DycoFn.backward) is not a kernel of its own
+        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
         conv_ms, conv_n = Counter(), Counter()
         for e in kern:
             # the demangled name, "void (anonymous namespace)::subm_conv_kernel<64>(...)"
@@ -528,6 +559,15 @@ def profile_request(fn, what: str, top: int = 12, attempts: int = 3) -> None:
           flush=True)
     for name, ms in by_name.most_common(top):
         print(f"  {ms:9.3f} ms  {name}", flush=True)
+    marks = [e for e in prof.events()
+             if e.name == "DycoFn.backward" and e.device_type == torch.autograd.DeviceType.CPU]
+    if marks:
+        def kernels(e):
+            return len(e.kernels) + sum(kernels(c) for c in e.cpu_children)
+        dyco_us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total for e in marks)
+        print(f"profile, {what}: DycoFn.backward (K5's plain recompute) {dyco_us / 1e3:.3f} ms "
+              f"of device time in {sum(kernels(e) for e in marks)} kernels, {len(marks)} call(s)",
+              flush=True)
     print(f"profile, {what}: K1 (forward and dfeats) {conv_ms['K1']:.3f} ms in {conv_n['K1']} "
           f"launches of subm_conv_kernel, dW {conv_ms['dW']:.3f} ms in {conv_n['dW']} launches of "
           f"subm_conv_dw_kernel (each with its helper kernels); the wrappers counted {want}",
@@ -537,13 +577,13 @@ def profile_request(fn, what: str, top: int = 12, attempts: int = 3) -> None:
 def conv_acc() -> dict:
     """Per-step sums of a conv kernel over its launches at the 14 shapes."""
     return dict(ms=0.0, plain_ms=0.0, bound=0.0, fp32=0.0, x3=0.0, bytes_ms=0.0, ops_ms=0.0,
-                flops=0.0, err=0.0)
+                flops=0.0, err=0.0, fp64=0.0)
 
 
 def add_conv(acc: dict, n: int, ms: float, pms: float, nbytes: float, flops: float,
              err: float) -> dict:
     """Adds ``n`` launches of one shape to ``acc``; returns the shape's bounds."""
-    bd = conv_bounds(nbytes, flops)
+    bd = tc_bounds(nbytes, flops)
     for key, val in (("ms", ms), ("plain_ms", pms), ("bound", bd["bound"]), ("fp32", bd["fp32"]),
                      ("x3", bd["x3"]), ("flops", flops),
                      ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3),
@@ -570,10 +610,11 @@ def conv_step_line(key: str, n: int, a: dict) -> str:
 def conv_extra(acc: dict, sass) -> dict:
     """The conv kernels' keys of the ``kernels`` line beside the common ones:
     ``bound_ms`` is their TF32 bound; these are the fp32 bound and the cost
-    of the 3xTF32 form, the TFLOP/s on the pairs that hold a neighbour, and
-    the tensor-core instructions of the library's SASS."""
+    of the 3xTF32 form, the TFLOP/s on the pairs that hold a neighbour, the
+    largest ratio of the kernel's rms error against fp64 to the plain fp32
+    version's, and the tensor-core instructions of the library's SASS."""
     return dict(bound_fp32_ms=acc["fp32"], bound_3xtf32_ms=acc["x3"],
-                tflops=acc["flops"] / acc["ms"] / 1e9, sass=sass)
+                tflops=acc["flops"] / acc["ms"] / 1e9, fp64_rms_ratio=acc["fp64"], sass=sass)
 
 
 def batch4_row_orders(plan, cfg, dev) -> None:
@@ -614,20 +655,22 @@ def order_times(run_sorted, run_spatial) -> tuple:
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
-def fp64_drift(got, plain, ref, valid) -> tuple:
-    """K1's and the plain fp32 version's distance from the same function in
-    fp64 over the valid rows, in fp32 ulps of the output's largest entry:
-    the root mean square, and the mean of the error along the sign of the
-    output (a drift towards zero is negative). Returns (K1's rms, the plain
-    version's rms, a summary)."""
-    ref = ref[valid]
+def fp64_drift(got, plain, ref, valid=None, name: str = "K1") -> tuple:
+    """A kernel's and the plain fp32 version's distance from the same
+    function in fp64 over the entries ``valid`` selects (all by default),
+    in fp32 ulps of the output's largest entry: the root mean square, and
+    the mean of the error along the sign of the output (a drift towards
+    zero is negative). Returns (the kernel's rms, the plain version's rms,
+    a summary)."""
+    pick = (lambda x: x[valid]) if valid is not None else (lambda x: x.reshape(-1))
+    ref = pick(ref)
     ulp = float(ref.abs().max()) * 2.0 ** -23
     rms, out = [], []
-    for name, x in (("K1", got), ("plain", plain)):
-        e = x[valid].double() - ref
+    for label, x in ((name, got), ("plain", plain)):
+        e = pick(x).double() - ref
         rms.append(float(e.square().mean().sqrt()) / ulp)
         along = float((e * ref.sign()).mean()) / ulp
-        out.append(f"{name} rms {rms[-1]:.3g}, along the sign {along:+.3g}")
+        out.append(f"{label} rms {rms[-1]:.3g}, along the sign {along:+.3g}")
     return rms[0], rms[1], "; ".join(out) + " ulp"
 
 
@@ -665,6 +708,7 @@ def k1_phase(cfg, caps, levels, dev) -> dict:
         rms, plain_rms, drift = fp64_drift(got, want, ref, valid)
         if rms > NOISE_FACTOR * plain_rms:
             fail(f"K1 at V={v} Cin={cin} Cout={cout} is further from fp64 than fp32 is: {drift}")
+        k1["fp64"] = max(k1["fp64"], rms / plain_rms)
         spatial = spatial_tables(nbr)
         if not torch.equal(conv.subm_conv_cuda(feats, nbr, w, valid, tables=spatial)[~valid],
                            got[~valid]):
@@ -743,6 +787,13 @@ def backward_kernel_phase(cfg, caps, levels, dev) -> tuple:
             fail(f"dfeats at V={v}: invalid rows are not exactly 0")
         if not torch.equal(got_dw, again):
             fail(f"dW at V={v} Cin={cin} Cout={cout} differs between two launches")
+        rms, plain_rms, drift = fp64_drift(
+            got_dw, conv.subm_conv_dw(feats, nbr, dout),
+            conv.subm_conv_dw(feats.double(), nbr, dout.double()), name="dW")
+        if rms > NOISE_FACTOR * plain_rms:
+            fail(f"dW at V={v} Cin={cin} Cout={cout} is further from fp64 than fp32 is: {drift}")
+        acc["dw"]["fp64"] = max(acc["dw"]["fp64"], rms / plain_rms)
+        line.append("dW against fp64: " + drift)
         if v in caps[:2]:
             spatial = spatial_tables(nbr)
             ts, tp = order_times(
@@ -752,6 +803,8 @@ def backward_kernel_phase(cfg, caps, levels, dev) -> tuple:
         print("; ".join(line) + f"; {flops / 1e9:.3f} GFLOP; dW bit-identical", flush=True)
     for key, n in (("dfeats", 52), ("dw", 53)):
         print(conv_step_line(key, n, acc[key]), flush=True)
+    print(f"dW against fp64 at the 14 shapes: rms at most {acc['dw']['fp64']:.3g} times the plain "
+          f"fp32 version's (gate {NOISE_FACTOR}); bit-identical across launches", flush=True)
     return acc["dfeats"], acc["dw"]
 
 
@@ -1127,35 +1180,59 @@ def ball_query_phase(model, scene, dev) -> None:
           f"neighbours of {capped} of {int(qv.sum())} queries", flush=True)
 
 
-def dyco_inputs(dev, b, q, s, m=32, seed=0):
+def dyco_inputs(dev, b, q, s, m=32, seed=0, empty=0):
     """Mask-head inputs at the model's scales: weights of O(1/sqrt(fan_in)),
-    unit features and geometry, a fifth of the superpoints invalid."""
+    unit features and geometry, a fifth of the superpoints invalid, and none
+    valid in the last ``empty`` items."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     h = m // 2
     r = lambda *shape, scale=1.0: (torch.randn(*shape, generator=g) * scale).to(dev)
-    return (r(b, q, m + 6, m, scale=(m + 6) ** -0.5), r(b, q, m, h, scale=m ** -0.5),
+    args = (r(b, q, m + 6, m, scale=(m + 6) ** -0.5), r(b, q, m, h, scale=m ** -0.5),
             r(b, q, h, 1, scale=h ** -0.5), r(b, q, m, scale=0.1), r(b, q, h, scale=0.1),
-            r(b, q, 3), r(b, q, 3).abs(), r(b, s, m), r(b, s, 3), r(b, s, 3).abs(),
-            (torch.rand(b, s, generator=g) > 0.2).to(dev))
+            r(b, q, 3), r(b, q, 3).abs(), r(b, s, m), r(b, s, 3), r(b, s, 3).abs())
+    valid = torch.rand(b, s, generator=g) > 0.2
+    valid[b - empty:] = False
+    return (*args, valid.to(dev))
+
+
+def dyco_ops(pairs: int, m: int = 32) -> float:
+    """K5's operations: the function's multiply-adds, 2 (M + 6) M + 2 M H +
+    2 H a (query, valid superpoint) pair (H = M / 2; the kernel skips no
+    valid pair, and the invalid ones are not the function's)."""
+    h = m // 2
+    return float(pairs) * (2 * (m + 6) * m + 2 * m * h + 2 * h)
+
+
+def dyco_bytes(b: int, q: int, s: int, m: int = 32) -> int:
+    """K5's bytes: each query's weights and geometry, each superpoint's
+    features, geometry and validity read once, the [B, Q, S] logits written
+    once."""
+    h = m // 2
+    return (4 * (b * q * ((m + 6) * m + m * h + h + m + h + 6) + b * s * (m + 6) + b * q * s)
+            + b * s)
 
 
 def dyco_kernel_phase(dev) -> dict:
     """K5 against the plain einsum version at each shape of ``DYCO_SHAPES``
-    (TF32 is off), timed with its bound; then ``DycoFn``'s gradients on the
-    card against ``torch.autograd.grad`` of the plain version at the
+    (TF32 is off): within K5_RTOL / K5_ATOL, invalid superpoints exactly
+    MASK_FILL, two launches bit-identical, and its rms error against the
+    same function in fp64 at most NOISE_FACTOR times the plain version's;
+    timed with its bounds (``tc_bounds``). Then ``DycoFn``'s gradients on
+    the card against ``torch.autograd.grad`` of the plain version at the
     training shape. Returns the timings by shape and the largest error."""
     import torch
 
     from gapro_tpu_torch.models import dyco
 
     print("K5 dyco_cuda vs plain (B, Q, S):", flush=True)
-    res = dict(err=0.0, shapes={})
-    for b, q, s, what in DYCO_SHAPES:
-        args = dyco_inputs(dev, b, q, s, seed=q + s)
-        got = dyco.dyco_cuda(*args)
+    res = dict(err=0.0, fp64=0.0, shapes={})
+    for b, q, s, empty, what in DYCO_SHAPES:
+        args = dyco_inputs(dev, b, q, s, seed=q + s, empty=empty)
+        got, again = dyco.dyco_cuda(*args), dyco.dyco_cuda(*args)
         want = dyco.dyco_mlp_plain(*args)
+        ref = dyco.dyco_mlp_plain(*(a.double() for a in args[:-1]), args[-1])
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         bad = (got - want).abs() > K5_ATOL + K5_RTOL * want.abs()
@@ -1164,22 +1241,34 @@ def dyco_kernel_phase(dev) -> dict:
                  f"{K5_ATOL}; max |err| {err:.3g}")
         if not bool((got.transpose(1, 2)[~args[-1]] == MASK_FILL).all()):
             fail(f"K5 at B={b} Q={q} S={s}: invalid superpoints are not exactly {MASK_FILL}")
+        if not torch.equal(got, again):
+            fail(f"K5 at B={b} Q={q} S={s} differs between two launches")
+        pairs = q * int(args[-1].sum())  # the function's pairs: valid superpoints only
+        drift = "no valid superpoint"
+        if pairs:
+            rms, plain_rms, drift = fp64_drift(got, want, ref, args[-1][:, None, :].expand_as(want),
+                                               name="K5")
+            if rms > NOISE_FACTOR * plain_rms:
+                fail(f"K5 at B={b} Q={q} S={s} is further from fp64 than fp32 is: {drift}")
+            res["fp64"] = max(res["fp64"], rms / plain_rms)
+        del ref
         ms = cuda_ms(lambda: dyco.dyco_cuda(*args), 10)
+        dms = device_ms(lambda: dyco.dyco_cuda(*args), ("dyco_kernel", "image_kernel"))
         pms = cuda_ms(lambda: dyco.dyco_mlp_plain(*args), 3)
-        m, h = 32, 16
-        pairs = q * int(args[-1].sum())  # the kernel skips invalid superpoints
-        ops = pairs * (2 * (m + 6) * m + 2 * m * h + 2 * h + 9 + 2 * (m + h))
-        nbytes = 4 * (b * q * ((m + 6) * m + m * h + h + m + h + 6) + b * s * (m + 6)
-                      + b * q * s) + b * s
-        bms, by = bound_ms(nbytes, ops)
+        ops, nbytes = dyco_ops(pairs), dyco_bytes(b, q, s)
+        bd = tc_bounds(nbytes, ops)
         res["err"] = max(res["err"], err)
-        res["shapes"][what] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        res["shapes"][what] = dict(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bd["bound"],
+                                   bound_by=bd["by"], fp32=bd["fp32"], x3=bd["x3"],
                                    bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                                   ops_ms=ops / FP32_FLOPS * 1e3)
-        print(f"  B={b} Q={q:3d} S={s:4d} ({what}): kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by}; {ops / 1e9:.3f} GFLOP over {pairs} valid pairs, "
-              f"{ops / ms / 1e9:.2f} TFLOP/s), max|err| {err:.3g}", flush=True)
-    b, q, s, _ = DYCO_SHAPES[0]
+                                   ops_ms=ops / TF32_FLOPS * 1e3)
+        print(f"  B={b} Q={q:3d} S={s:4d} ({what}): wrapper {ms:.4f} ms (its two kernels "
+              f"{dms:.4f} ms of device time), plain {pms:.4f} ms, "
+              f"bound {bd['bound']:.4f} ms ({bd['by']}, TF32; fp32 {bd['fp32']:.4f}, 3xTF32 "
+              f"{bd['x3']:.4f}; {ops / 1e9:.3f} GFLOP over {pairs} valid pairs, "
+              f"{ops / ms / 1e9:.2f} TFLOP/s), max|err| {err:.3g}, bit-identical; against fp64: "
+              + drift, flush=True)
+    b, q, s, _, _ = DYCO_SHAPES[0]
     args = dyco_inputs(dev, b, q, s, seed=7)
     xs = [a.clone().requires_grad_() for a in args[:-1]]
     ys = [a.clone().requires_grad_() for a in args[:-1]]
@@ -1195,6 +1284,8 @@ def dyco_kernel_phase(dev) -> dict:
                  f"of its scale")
     print(f"K5 backward (DycoFn, plain recompute) at B={b} Q={q} S={s}: the ten gradients "
           f"within {worst:.3g} of their scale of autograd through the plain version", flush=True)
+    print(f"K5 against fp64: rms at most {res['fp64']:.3g} times the plain fp32 version's "
+          f"(gate {NOISE_FACTOR})", flush=True)
     return res
 
 
@@ -1412,8 +1503,9 @@ def main() -> None:
     sass = sass_counts()
     print("tensor-core and cluster-barrier instructions in the SASS (cuobjdump -sass): "
           + (json.dumps(sass) if sass else "cuobjdump not found, not counted"), flush=True)
-    if sass and (sass["subm_conv"]["HGMMA"] == 0 or sass["subm_conv_dw"]["HMMA"] == 0):
-        fail(f"a conv kernel was built without its tensor-core instructions: {sass}")
+    if sass and (sass["subm_conv"]["HGMMA"] == 0 or sass["subm_conv_dw"]["HMMA"] == 0
+                 or sass["dyco"]["HGMMA"] == 0):
+        fail(f"a conv kernel or K5 was built without its tensor-core instructions: {sass}")
     if sass and (sass["fps"]["CGABAR"] == 0 or sass["fps"]["STAS"] == 0):
         fail(f"K4 was built without its cluster barriers or st.async: {sass['fps']}")
 
@@ -1575,7 +1667,8 @@ def main() -> None:
     tl, t4 = train_launches, trainer["launches"]
     req = [k5["shapes"][f"request round {i}"] for i in (1, 2, 3)]
     k5_req = dict(err=k5["err"], **{key: sum(r[key] for r in req)
-                                    for key in ("ms", "plain_ms", "bytes_ms", "ops_ms")},
+                                    for key in ("ms", "device_ms", "plain_ms", "bytes_ms",
+                                                "ops_ms", "fp32", "x3")},
                   bound=sum(r["bound_ms"] for r in req))
     k5_train, k5_val = k5["shapes"]["training step, batch 4"], k5["shapes"]["validation scene"]
     kernels = []
@@ -1610,9 +1703,14 @@ def main() -> None:
              launches["dyco"],
              dict(train_launches=tl["dyco"], train_b4_launches=t4["dyco"],
                   test_cli_launches=test_cli["launches"]["dyco"],
+                  device_ms=k5_req["device_ms"], train_b4_device_ms=k5_train["device_ms"],
                   train_b4_ms=k5_train["ms"], train_b4_plain_ms=k5_train["plain_ms"],
                   train_b4_bound_ms=k5_train["bound_ms"], val_ms=k5_val["ms"],
-                  val_plain_ms=k5_val["plain_ms"], val_bound_ms=k5_val["bound_ms"]))):
+                  val_plain_ms=k5_val["plain_ms"], val_bound_ms=k5_val["bound_ms"],
+                  bound_fp32_ms=k5_req["fp32"], bound_3xtf32_ms=k5_req["x3"],
+                  train_b4_bound_fp32_ms=k5_train["fp32"],
+                  train_b4_bound_3xtf32_ms=k5_train["x3"], fp64_rms_ratio=k5["fp64"],
+                  sass=sass.get("dyco")))):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, launches=n,
             max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound"],

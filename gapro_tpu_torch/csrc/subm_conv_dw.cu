@@ -40,6 +40,12 @@
 // Precision: TF32 keeps 10 mantissa bits, so each product is taken in the
 // split form (3xTF32): x = hi + lo with hi = tf32(x), lo = tf32(x - hi)
 // (cvt.rna), and a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, summed in fp32.
+// The tensor cores do not round their fp32 sums to nearest: a range's sum
+// kept in the mma accumulator (up to about 700 accumulating mmas) drifted
+// towards zero, many times further from fp64 than the plain fp32 version
+// (PERF.md §6). So each k-step's three mmas (8 pairs) start from a zero
+// accumulator, and the k-step sums are added in fp32 on the CUDA cores
+// (round to nearest), in pair order.
 //
 // The levels with many rows and few channels have too few (tile, k) pairs
 // to fill 132 SMs, so each list is split into ranges of `per` pairs over
@@ -178,13 +184,18 @@ subm_conv_dw_kernel(const float* __restrict__ feats, const float* __restrict__ d
         split_tf32(Bs[s][kk + t4][n], bhi[b][0], blo[b][0]);
         split_tf32(Bs[s][kk + t4 + 4][n], bhi[b][1], blo[b][1]);
       }
+      // this k-step's products start from zero on the tensor cores, and
+      // are added to the running sum in fp32 on the CUDA cores
 #pragma unroll
       for (int a = 0; a < MT; ++a)
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
-          mma_tf32(acc[a][b], alo[a], bhi[b]);
-          mma_tf32(acc[a][b], ahi[a], blo[b]);
-          mma_tf32(acc[a][b], ahi[a], bhi[b]);
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(part, alo[a], bhi[b]);
+          mma_tf32(part, ahi[a], blo[b]);
+          mma_tf32(part, ahi[a], bhi[b]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[a][b][e] = __fadd_rn(acc[a][b][e], part[e]);
         }
     }
   }

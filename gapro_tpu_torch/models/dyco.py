@@ -7,7 +7,8 @@ the superpoint is invalid.
 
 * ``dyco_mlp_plain``: the batched-einsum form (``dyco_mlp_xla``), the plain
   PyTorch version of kernel K5.
-* ``dyco_cuda``: K5's wrapper (``csrc/dyco.cu``). For a CPU tensor it takes
+* ``dyco_cuda``: K5's wrapper (``csrc/dyco.cu``: the two layers' products
+  on the tensor cores in the split 3xTF32 form). For a CPU tensor it takes
   ``dyco_mlp_plain``; for a CUDA tensor it launches the kernel or raises. It
   counts its launches in ``dyco_cuda.launches``.
 * ``DycoFn``: the forward through ``dyco_cuda``, the backward by recomputing
@@ -62,7 +63,8 @@ def _per_query(t, name: str, inner: tuple):
 
 
 def dyco_cuda(w0, w1, w2, b0, b1, q_locs, q_dims, sp_feats, sp_coords, sp_dims, sp_valid):
-    """K5: ``dyco_mlp_plain`` as one CUDA launch."""
+    """K5: ``dyco_mlp_plain`` on the card (the kernel and the prologue that
+    lays out each query's weights for it)."""
     if w0.device.type == "cpu":
         return dyco_mlp_plain(w0, w1, w2, b0, b1, q_locs, q_dims, sp_feats, sp_coords, sp_dims,
                               sp_valid)
@@ -94,9 +96,14 @@ def dyco_cuda(w0, w1, w2, b0, b1, q_locs, q_dims, sp_feats, sp_coords, sp_dims, 
         t.contiguous() for t in (q_locs, q_dims, sp_feats, sp_coords, sp_dims, sp_valid))
     out = torch.empty((b, q, s), dtype=torch.float32, device=w0.device)
     lib = cuda_build.load("dyco")
+    lib.gapro_dyco_image_floats.argtypes = [ctypes.c_int] * 3
+    lib.gapro_dyco_image_floats.restype = ctypes.c_longlong
+    # each query's weights, split and laid out for the kernel's shared memory
+    img = torch.empty(lib.gapro_dyco_image_floats(b, q, m), dtype=torch.float32,
+                      device=w0.device)
     fn = lib.gapro_dyco_fwd
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 5
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     weights = []
     for t in (w0, w1, w2, b0, b1):
@@ -104,7 +111,7 @@ def dyco_cuda(w0, w1, w2, b0, b1, q_locs, q_dims, sp_feats, sp_coords, sp_dims, 
     with torch.cuda.device(w0.device):
         err = fn(*weights, q_locs.data_ptr(), q_dims.data_ptr(), sp_feats.data_ptr(),
                  sp_coords.data_ptr(), sp_dims.data_ptr(), sp_valid.data_ptr(), out.data_ptr(),
-                 b, q, s, m, torch.cuda.current_stream().cuda_stream)
+                 img.data_ptr(), b, q, s, m, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "dyco_cuda")
     dyco_cuda.launches += 1
     return out
@@ -132,9 +139,10 @@ class DycoFn(torch.autograd.Function):
         args = [t.detach().requires_grad_(need)
                 for t, need in zip(saved, ctx.needs_input_grad)]
         wanted = [a for a in args if a.requires_grad]
-        with torch.enable_grad():
+        # a named range, so that a profile can tell this recompute's kernels
+        with torch.profiler.record_function("DycoFn.backward"), torch.enable_grad():
             out = dyco_mlp_plain(*args, sp_valid)
-        got = iter(torch.autograd.grad(out, wanted, grad)) if wanted else iter(())
+            got = iter(torch.autograd.grad(out, wanted, grad)) if wanted else iter(())
         return (*(next(got) if a.requires_grad else None for a in args), None)
 
 

@@ -33,7 +33,7 @@ from gapro_tpu_torch.sparse.plan import (TILE_ROWS, ConvTables, build_unet_plan,
                                          pair_lists)
 from gapro_tpu_torch.sparse.tensor import SparseGrid
 
-from chip_smoke import K1_RTOL, computed_slots, conv_bounds, spatial_tables
+from chip_smoke import K1_RTOL, computed_slots, spatial_tables, tc_bounds
 from tests.test_torch_plan import _check_plans
 BENCH_SHRINK = (0.67, 0.3, 0.25, 0.25, 0.25, 0.25)
 
@@ -176,7 +176,7 @@ def test_conv_bound_counts_the_functions_operations(nbytes, flops, by):
     operations at the TF32 rate (495 TFLOP/s) or its bytes at 3.35 TB/s,
     whichever is larger; the cost of the 3xTF32 form the kernels take (three
     products for each) and the fp32 bound stand beside it."""
-    got = conv_bounds(nbytes, flops)
+    got = tc_bounds(nbytes, flops)
     assert got["bound"] == pytest.approx(max(nbytes / 3.35e12, flops / 495e12) * 1e3)
     assert got["by"] == by
     assert got["x3"] == pytest.approx(max(nbytes / 3.35e12, 3 * flops / 495e12) * 1e3)

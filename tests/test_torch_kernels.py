@@ -287,3 +287,109 @@ def test_dyco_cuda_matches_plain(cuda_device, B, Q, S):
     gp = torch.autograd.grad(dyco.dyco_mlp_plain(*ys, args[-1]), ys, ct)
     for a, b in zip(gk, gp):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
+def _dyco_check(got, args):
+    """K5's logits against the plain version (rtol 2e-5, atol 2e-4),
+    invalid superpoints exactly -1e4."""
+    torch.testing.assert_close(got, dyco.dyco_mlp_plain(*args), rtol=2e-5, atol=2e-4)
+    assert (got.transpose(1, 2)[~args[-1]] == -1e4).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 16, 32])
+def test_dyco_cuda_widths(cuda_device, m):
+    """K5 at each mask width the kernel is built for (M = 8 pads layer 1's
+    H = 4 columns to wgmma's 8), on a shape that spans two superpoint
+    blocks and several query groups; two launches bit-identical."""
+    args = _dyco_args(cuda_device, 2, 40, 700, m=m, seed=m)
+    got, again = dyco.dyco_cuda(*args), dyco.dyco_cuda(*args)
+    torch.cuda.synchronize()
+    _dyco_check(got, args)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_dyco_cuda_item_with_no_valid_superpoint(cuda_device):
+    """An item whose superpoints are all invalid (as items 2 and 3 of the
+    batch-4 step) gets -1e4 everywhere; the other item is unchanged by it."""
+    args = list(_dyco_args(cuda_device, 2, 24, 600, seed=4))
+    args[-1] = args[-1].clone()
+    args[-1][1] = False
+    got = dyco.dyco_cuda(*args)
+    torch.cuda.synchronize()
+    assert (got[1] == -1e4).all()
+    _dyco_check(got, args)
+    alone = dyco.dyco_cuda(*(a[:1].contiguous() for a in args))
+    assert torch.equal(got[:1], alone)
+
+
+@pytest.mark.gpu
+def test_dyco_cuda_takes_strided_controller_views(cuda_device):
+    """The weights as the model hands them: views of one controller row
+    (split, then reshaped), read through their strides, equal bit for bit to
+    a launch on contiguous copies."""
+    b, q, s, m, h = 2, 33, 300, 32, 16
+    sizes = [(m + 6) * m, m * h, h, m, h]
+    g = torch.Generator().manual_seed(9)
+    ctrl = (torch.randn(b, q, sum(sizes), generator=g) * 0.15).to(cuda_device)
+    parts = torch.split(ctrl, sizes, dim=-1)
+    weights = (parts[0].reshape(b, q, m + 6, m), parts[1].reshape(b, q, m, h),
+               parts[2].reshape(b, q, h, 1), parts[3], parts[4])
+    rest = _dyco_args(cuda_device, b, q, s, seed=10)[5:]
+    got = dyco.dyco_cuda(*weights, *rest)
+    want = dyco.dyco_cuda(*(t.contiguous() for t in weights), *rest)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _dyco_check(got, (*weights, *rest))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 16, 32])
+def test_dyco_cuda_fragment_mapping(cuda_device, m):
+    """Each logit routes one entry to the output through one-hot weights, so
+    a mistake in the kernel's fragment layouts (rows, columns, the permuted
+    reduction of layer 1, the padded columns at M = 8, the image's bias and
+    query sections) shows as a wrong value. Every (superpoint, column) has
+    its own value, s + c / 64 (at most 16 significant bits, so the split
+    form carries it exactly): queries 0 .. M - 1 return feature q, the next
+    6 geometry column q - M (q_loc - sp_coord, |q_dim - sp_dim|, integers),
+    the last M the bias b0[c] + b1[c % H]. Rows 0 .. 599 cover three
+    superpoint blocks; every 7th superpoint is invalid."""
+    h, s = m // 2, 600
+    q = 2 * m + 6
+    w0, w1, w2 = torch.zeros(1, q, m + 6, m), torch.zeros(1, q, m, h), torch.zeros(1, q, h, 1)
+    b0, b1 = torch.zeros(1, q, m), torch.zeros(1, q, h)
+    want = torch.zeros(1, q, s, dtype=torch.float64)
+    idx = torch.arange(s, dtype=torch.float64)
+    feats = idx[:, None] + torch.arange(m, dtype=torch.float64)[None] / 64
+    coords = torch.stack([idx % 7, idx % 11, idx % 13], 1)
+    dims = (idx % 17)[:, None].expand(s, 3)
+    q_loc, q_dim = torch.tensor([100.0, 200.0, 300.0]), torch.tensor([50.0, 40.0, 30.0])
+    geo = torch.cat([q_loc - coords, (q_dim - dims).abs()], 1)
+    for qi in range(q):
+        c = qi % m
+        w1[0, qi, c, c % h] = 1.0
+        w2[0, qi, c % h, 0] = 1.0
+        if qi < m:
+            w0[0, qi, 6 + c, c] = 1.0
+            want[0, qi] = feats[:, c]
+        elif qi < m + 6:
+            w0[0, qi, qi - m, c] = 1.0
+            want[0, qi] = geo[:, qi - m]
+        else:
+            b0[0, qi, c] = 1.0 + c / 8
+            b1[0, qi] = torch.arange(h) / 16
+            want[0, qi] = b0[0, qi, c] + b1[0, qi, c % h]
+    valid = torch.arange(s) % 7 != 3
+    want[:, :, ~valid] = -1e4
+    args = [t.float().to(cuda_device) for t in (w0, w1, w2, b0, b1, q_loc.expand(1, q, 3),
+                                                q_dim.expand(1, q, 3), feats[None], coords[None],
+                                                dims[None])] + [valid[None].to(cuda_device)]
+    got = dyco.dyco_cuda(*args)
+    torch.cuda.synchronize()
+    wrong = got.double().cpu() != want
+    assert not bool(wrong.any()), (
+        f"{int(wrong.sum())} logits differ, first at (query, superpoint) "
+        f"{wrong[0].nonzero()[0].tolist()}: {float(got[0][wrong[0]][0])} vs "
+        f"{float(want[0][wrong[0]][0])}")

@@ -57,7 +57,16 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
 11. the test CLI (gapro_tpu_torch/tools/test.py) on 2 full-size scenes:
     per-scene time and AP, counts zeroed just before and read just after;
 12. one batch-4 training step with its layer calls timed (the ball query's
-    beside its time in the tiled form), and one under torch.profiler.
+    beside its time in the tiled form), and one under torch.profiler;
+13. the GP labeler (GaPro's stage 1, no kernel of ours): bench.py's sweep,
+    16 scenes of its default preset at window 4 with ``LabelerConfig()``,
+    one warm and three timed passes of ``generate_scene_labels_stream``
+    (scenes/s, ``PHASE_STATS``, ``OVERFLOW_STATS``, the fit groups' shapes,
+    peak memory), gate (a) scenes 0-3 as one window against the port on
+    the CPU (``labeler_gate``), gate (b) two card passes bit for bit, gate
+    (c) finite mu and var; one pass of bench.py's "real" preset; one pass
+    under torch.profiler, and one fit group's kernels an Adam step and its
+    device time against its wall time.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -1072,6 +1081,508 @@ def capture(mod, name: str, calls: list):
         setattr(mod, name, f)
 
 
+# The GP labeler against another run of it (the card against the CPU, or the
+# port against the JAX package). 50 fp32 Adam steps amplify rounding, so:
+# the fits' start (ELBO and gradients at the initial parameters) is held
+# against fp64 as K1 is, within NOISE_FACTOR of the plain CPU run's error;
+# after the 50 steps, mu and var within `bound` x (FIT_ATOL + FIT_RTOL *
+# |other|), the cross-implementation bound of tests/test_parity_gp.py:90-91
+# (`bound` 1, as the CPU tests hold the port against JAX and gate (a) holds
+# that file's six cases, PARITY_FIT_BOUND). On bench.py's scenes the fit's own
+# spread is larger than that: a one-ulp change of the pooled features moves
+# the card's mu and var by 1.4595 of it, and the card against the CPU came to
+# 1.5636, while the same fits with TF32 products inside the 50 steps came to
+# 2.4191 (H100, PERF.md §6). LABELER_FIT_BOUND sits between the two, and each
+# run repeats that TF32 control and fails if it passes the bound. On the
+# superpoints a fit decides, at most LABEL_FLIP_RATE of the labels that are
+# confident on both sides (conf >= LABEL_CONF) may differ
+# (tests/test_parity_gp.py:146); everything else is identical.
+FIT_ATOL = FIT_RTOL = 0.05
+LABELER_FIT_BOUND = 2.0
+PARITY_FIT_BOUND = 1.0
+LABEL_CONF = 0.6
+LABEL_FLIP_RATE = 0.05
+
+
+@contextlib.contextmanager
+def record_fits(pipeline, out: dict):
+    """Record the job list of every window a labeler pipeline module fits
+    (``out["jobs"]``) and each window's per-job (probs, probs_new, labels,
+    mu, var) (``out["fits"]``), in order."""
+    submit, fetch = pipeline._fit_jobs_submit, pipeline._fit_jobs_fetch
+    out.setdefault("jobs", [])
+    out.setdefault("fits", [])
+
+    def rec_submit(jobs, *args, **kwargs):
+        out["jobs"].append(list(jobs))
+        return submit(jobs, *args, **kwargs)
+
+    def rec_fetch(*args, **kwargs):
+        res = fetch(*args, **kwargs)
+        out["fits"].append(res)
+        return res
+
+    pipeline._fit_jobs_submit, pipeline._fit_jobs_fetch = rec_submit, rec_fetch
+    try:
+        yield out
+    finally:
+        pipeline._fit_jobs_submit, pipeline._fit_jobs_fetch = submit, fetch
+
+
+def fit_ratio(fits_a, fits_b) -> float:
+    """The largest |a - b| / (FIT_ATOL + FIT_RTOL |b|) of the fits' mu and
+    var (per-job tuples), inf if a value is not finite."""
+    worst = 0.0
+    for ra, rb in zip(fits_a, fits_b):
+        for k in (3, 4):
+            if not (np.isfinite(ra[k]).all() and np.isfinite(rb[k]).all()):
+                return math.inf
+            if len(ra[k]):
+                lim = FIT_ATOL + FIT_RTOL * np.abs(rb[k])
+                worst = max(worst, float(np.max(np.abs(ra[k] - rb[k]) / lim)))
+    return worst
+
+
+def _per_spp(values, inverse):
+    out = np.zeros(int(inverse.max()) + 1 if inverse.size else 0, values.dtype)
+    out[inverse] = values
+    return out
+
+
+def labeler_gate(a: dict, b: dict, window: int, bound: float = 1.0) -> tuple:
+    """Hold labeler run ``a`` against run ``b`` (each ``record_fits``'
+    record plus ``labels``, the per-scene label tuples): job lists
+    identical; fits within ``bound`` x (FIT_ATOL + FIT_RTOL |b|); every point of a
+    superpoint no fit decides with identical sem, inst and prob; on the
+    superpoints a fit decides, the flip rate of labels confident on both
+    sides at most LABEL_FLIP_RATE. Returns (numbers, violations)."""
+    bad = []
+    if len(a["jobs"]) != len(b["jobs"]):
+        bad.append(f"{len(a['jobs'])} against {len(b['jobs'])} fitted windows")
+    for w, (ja, jb) in enumerate(zip(a["jobs"], b["jobs"])):
+        same = len(ja) == len(jb) and all(
+            (x.b1, x.b2, x.scene) == (y.b1, y.b2, y.scene)
+            and all(np.array_equal(getattr(x, f), getattr(y, f))
+                    for f in ("b1_inds", "b2_inds", "intersect_inds"))
+            for x, y in zip(ja, jb))
+        if not same:
+            bad.append(f"window {w}: the job lists differ")
+    ratio = max((fit_ratio(fa, fb) for fa, fb in zip(a["fits"], b["fits"])), default=0.0)
+    if not ratio <= bound:
+        bad.append(f"fits differ by {ratio:.3f} of FIT_ATOL + FIT_RTOL |mu, var| (at most "
+                   f"{bound:.3f})")
+    n_conf = n_flip = n_pts_gp = 0
+    for s, (la, lb) in enumerate(zip(a["labels"], b["labels"])):
+        inv = la[5]
+        gp = np.zeros(int(inv.max()) + 1, bool)
+        for job in a["jobs"][s // window] if s // window < len(a["jobs"]) else []:
+            if job.scene == s % window:
+                gp[job.intersect_inds] = True
+        rest = ~gp[inv]
+        n_pts_gp += int((~rest).sum())
+        for k, name in ((0, "sem"), (1, "inst"), (2, "prob")):
+            if not np.array_equal(la[k][rest], lb[k][rest]):
+                bad.append(f"scene {s}: {name} differs on a point no fit decides")
+        conf = ((_per_spp(la[2], inv) >= LABEL_CONF) & (_per_spp(lb[2], inv) >= LABEL_CONF)
+                & gp)
+        n_conf += int(conf.sum())
+        n_flip += int((conf & ((_per_spp(la[1], inv) != _per_spp(lb[1], inv))
+                               | (_per_spp(la[0], inv) != _per_spp(lb[0], inv)))).sum())
+    flip_rate = n_flip / max(n_conf, 1)
+    if flip_rate > LABEL_FLIP_RATE:
+        bad.append(f"{n_flip} of {n_conf} confident fitted superpoints flip "
+                   f"({flip_rate:.4f} > {LABEL_FLIP_RATE})")
+    return dict(jobs=sum(len(j) for j in a["jobs"]), fit_ratio=ratio, fit_bound=bound,
+                confident=n_conf, flips=n_flip, flip_rate=flip_rate, gp_points=n_pts_gp), bad
+
+
+# The labeler sweep of bench.py: its presets (bench.py:53-57), 16 scenes,
+# window 4, LabelerConfig() (50 Adam steps at lr 0.1, 128 inducing points,
+# at most 512 train and 1024 test rows a fit). Nothing is cut.
+LABELER_PRESETS = {
+    "default": dict(n_objects=12, points_per_object=4000, n_floor=30000, n_wall=16000),
+    "real": dict(n_objects=24, points_per_object=4500, n_floor=25000, n_wall=12000)}
+LABELER_SCENES = 16
+LABELER_WINDOW = 4
+LABELER_PASSES = 3  # timed passes after one warm pass
+
+
+def labeler_inputs(scene) -> dict:
+    """``submit_scene``'s arguments for a synthetic scene, as bench.py's
+    ``scene_inputs``: boxes from the instances, xyz + rgb features."""
+    from gapro_tpu_torch.labeler import instance_info
+
+    _, cls, boxes, vols, _ = instance_info(scene.xyz, scene.instance_label,
+                                           scene.semantic_label, with_corners=False)
+    return dict(coords=scene.xyz, gp_feats=np.concatenate([scene.xyz, scene.rgb], 1),
+                spp=scene.spp, instance_cls=cls, instance_box=boxes, instance_box_volume=vols)
+
+
+def labeler_sweep(scenes, device, window: int = LABELER_WINDOW) -> tuple:
+    """One pass of the stream over ``scenes`` (box derivation included, as in
+    bench.py). Returns (label tuples, seconds)."""
+    from gapro_tpu_torch.labeler import LabelerConfig, generate_scene_labels_stream
+
+    t0 = time.perf_counter()
+    labels = [out for _, out in generate_scene_labels_stream(
+        (labeler_inputs(s) for s in scenes), LabelerConfig(), window=window, device=device)]
+    return labels, time.perf_counter() - t0
+
+
+def same_labels(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(u.dtype == v.dtype and np.array_equal(u, v) for u, v in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def labeler_window(scenes, device):
+    """One window's jobs and pooled features, as the stream builds them."""
+    from gapro_tpu_torch.labeler import LabelerConfig
+    from gapro_tpu_torch.labeler import pipeline as lp
+
+    cfg = LabelerConfig()
+    res = [lp.enumerate_scene(lp.submit_scene(cfg=cfg, device=device, **labeler_inputs(s)), cfg)
+           for s in scenes]
+    return [j._replace(scene=si) for si, r in enumerate(res) for j in r.jobs], \
+        [r.feats_spp for r in res]
+
+
+def one_ulp_up(t):
+    import torch
+
+    return torch.nextafter(t, torch.full_like(t, math.inf))
+
+
+@contextlib.contextmanager
+def tf32_fits():
+    """The control of gate (a): the fits with TF32 products inside their 50
+    steps (``fit_numerics`` replaced by one that turns TF32 on)."""
+    import torch
+
+    from gapro_tpu_torch.gp import variational as tv
+
+    keep = tv.fit_numerics
+
+    @contextlib.contextmanager
+    def tf32():
+        m = torch.backends.cuda.matmul
+        prev, m.allow_tf32 = m.allow_tf32, True
+        try:
+            yield
+        finally:
+            m.allow_tf32 = prev
+
+    tv.fit_numerics = tf32
+    try:
+        yield
+    finally:
+        tv.fit_numerics = keep
+
+
+# tests/test_parity_gp.py's problems (its _problem and CASES, copied: that
+# file imports JAX): two labeled clusters in 6 dims and queries between them
+PARITY_CASES = [dict(seed=0), dict(seed=1, n1=12, n2=90, sep=0.8), dict(seed=2, aniso=True),
+                dict(seed=3, n1=80, n2=80, sep=2.5),
+                dict(seed=4, aniso=True, n1=25, n2=120, sep=0.6), dict(seed=5, n1=5, n2=7, q=4)]
+
+
+def parity_problem(seed, n1=40, n2=50, q=30, d=6, aniso=False, sep=1.2):
+    rng = np.random.default_rng(seed)
+    c1 = rng.normal(size=d).astype(np.float32)
+    c2 = c1 + (sep * rng.normal(size=d) / np.sqrt(d)).astype(np.float32)
+    scale = np.ones(d, np.float32)
+    if aniso:
+        scale[0] = 8.0
+    x1 = c1 + rng.normal(size=(n1, d)).astype(np.float32) * 0.3 * scale
+    x2 = c2 + rng.normal(size=(n2, d)).astype(np.float32) * 0.3 * scale
+    tx = np.concatenate([x1, x2]).astype(np.float32)
+    ty = np.concatenate([-np.ones(n1), np.ones(n2)]).astype(np.float32)
+    qx = 0.5 * (c1 + c2) + rng.normal(size=(q, d)).astype(np.float32) * 0.4 * scale
+    return tx, ty, qx.astype(np.float32)
+
+
+def parity_batch():
+    """PARITY_CASES as lanes of one padded batch: (tx, ty, tm, qx, qm)."""
+    probs = [parity_problem(**c) for c in PARITY_CASES]
+    b, t, q = len(probs), max(len(p[0]) for p in probs), max(len(p[2]) for p in probs)
+    d = probs[0][0].shape[1]
+    tx, ty, tm = np.zeros((b, t, d), np.float32), np.ones((b, t), np.float32), np.zeros((b, t), bool)
+    qx, qm = np.zeros((b, q, d), np.float32), np.zeros((b, q), bool)
+    for i, (x, y, z) in enumerate(probs):
+        tx[i, :len(x)], ty[i, :len(x)], tm[i, :len(x)] = x, y, True
+        qx[i, :len(z)], qm[i, :len(z)] = z, True
+    return tx, ty, tm, qx, qm
+
+
+def parity_fits(device, up: bool = False) -> list:
+    """PARITY_CASES' 50-step fits on ``device`` (inputs one ulp up with
+    ``up``), per lane (probs, probs_new, labels, mu, var) on its queries."""
+    import torch
+
+    from gapro_tpu_torch.gp import fit_gp_batch
+
+    tx, ty, tm, qx, qm = (torch.from_numpy(a).to(device) for a in parity_batch())
+    if up:
+        tx, qx = one_ulp_up(tx), one_ulp_up(qx)
+    res = fit_gp_batch(tx, ty, tm, qx, qm, 50, 0.1, None)
+    keep = qm.cpu().numpy()
+    return [tuple(getattr(res, f)[i].cpu().numpy()[keep[i]]
+                  for f in ("probs", "probs_new", "labels", "mu", "var"))
+            for i in range(len(keep))]
+
+
+def labeler_parity(dev) -> dict:
+    """PARITY_CASES, card against the port on the CPU, in units of FIT_ATOL
+    + FIT_RTOL |CPU|: ``card_cpu`` (gated at PARITY_FIT_BOUND), the one-ulp
+    noise runs ``card_ulp`` and ``cpu_ulp``, and ``tf32``, the control on
+    the card."""
+    cpu = parity_fits("cpu")
+    card = parity_fits(dev)
+    with tf32_fits():
+        tf32 = parity_fits(dev)
+    return dict(card_cpu=fit_ratio(card, cpu), card_ulp=fit_ratio(parity_fits(dev, up=True), card),
+                cpu_ulp=fit_ratio(parity_fits("cpu", up=True), cpu), tf32=fit_ratio(tf32, cpu))
+
+
+def labeler_first_step(scenes, dev) -> dict:
+    """The fits' start, before 50 Adam steps amplify rounding: each fit
+    group's ELBO and its gradient at the initial parameters, on the card in
+    fp32, on the CPU in fp32 and in fp64, for one window. Returns, per
+    quantity, the card's rms error against fp64 over the CPU fp32 run's (the
+    gate: at most NOISE_FACTOR, as K1's against fp64)."""
+    import torch
+
+    from gapro_tpu_torch.gp import variational as tv
+    from gapro_tpu_torch.labeler import LabelerConfig
+    from gapro_tpu_torch.labeler import pipeline as lp
+
+    cfg = LabelerConfig()
+    jobs, feats = labeler_window(scenes, "cpu")
+    flat = torch.cat(feats)
+    offsets = np.cumsum([0] + [f.shape[0] for f in feats])
+    names = ("elbo",) + tv.GPParams._fields
+    sq = {k: np.zeros(2) for k in names}  # squared error: card, CPU fp32
+
+    def start(ibuf, tb, device, dtype):
+        tx, ty, tm, _, _ = lp._gather_rows(torch.from_numpy(ibuf).to(device),
+                                           flat.to(device, dtype), tb)
+        m = min(cfg.n_inducing, tb)
+        with tv.fit_numerics():
+            leaves = [p.to(dtype).requires_grad_(True) for p in tv.init_params(tx[:, :m])]
+            e = tv.elbo(tv.GPParams(*leaves), tm[:, :m], tx, ty.to(dtype), tm)
+            grads = torch.autograd.grad(-e.sum(), leaves)
+        return [x.detach().cpu().double().numpy() for x in (e, *grads)]
+
+    for (tb, qb), idxs in lp._job_buckets(jobs, cfg).items():
+        ibuf = lp._group_index(jobs, idxs, tb, qb, offsets)
+        ref = start(ibuf, tb, "cpu", torch.float64)
+        for col, got in enumerate((start(ibuf, tb, dev, torch.float32),
+                                   start(ibuf, tb, "cpu", torch.float32))):
+            for k, g, r in zip(names, got, ref):
+                sq[k][col] += float(np.sum((g - r) ** 2))
+    # a gradient that is exactly 0 at the start (the inducing points and the
+    # lengthscale: with S = I the predictions do not depend on them) must
+    # stay exactly 0 on the card
+    return {k: (0.0 if v[0] == 0 else math.inf if v[1] == 0 else math.sqrt(v[0] / v[1]))
+            for k, v in sq.items()}
+
+
+def labeler_group_profile(scenes, dev) -> None:
+    """The largest fit group of one window alone: kernels an Adam step (the
+    kernel count of 2 steps less that of 1), and its device time against its
+    wall time at 50 steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gapro_tpu_torch.labeler import LabelerConfig
+    from gapro_tpu_torch.labeler import pipeline as lp
+
+    cfg = LabelerConfig()
+    jobs, feats = labeler_window(scenes, dev)
+    (tb, qb), idxs = max(lp._job_buckets(jobs, cfg).items(), key=lambda kv: len(kv[1]))
+    group = [jobs[j] for j in idxs]
+
+    def traced(c):
+        lp._fit_jobs_fetch(lp._fit_jobs_submit(group, feats, c))  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lp._fit_jobs_fetch(lp._fit_jobs_submit(group, feats, c))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith(("Memcpy", "Memset"))]
+        return len(kern), sum(e.time_range.elapsed_us() for e in kern) / 1e3, wall
+
+    n1 = traced(dataclasses.replace(cfg, training_iter=1))[0]
+    n2 = traced(dataclasses.replace(cfg, training_iter=2))[0]
+    n50, dev_ms, wall_ms = traced(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp._fit_jobs_fetch(lp._fit_jobs_submit(group, feats, cfg))
+    untraced = (time.perf_counter() - t0) * 1e3
+    print(f"labeler fit group (tb, qb, B) = ({tb}, {qb}, {lp.next_bucket(len(group), min_size=4)}),"
+          f" {len(group)} jobs: {n2 - n1} kernels an Adam step ({n50} at {cfg.training_iter} "
+          f"steps); traced: device {dev_ms:.3f} ms against wall {wall_ms:.3f} ms (busy "
+          f"{dev_ms / wall_ms:.1%}); untraced wall {untraced:.3f} ms, {untraced / cfg.training_iter:.3f}"
+          f" ms a step", flush=True)
+
+
+def labeler_phase(dev) -> dict:
+    """GaPro's stage 1 on the card: the GP labeler's stream over bench.py's
+    sweep (see LABELER_PRESETS), with its gates. Returns its numbers."""
+    import torch
+
+    from gapro_tpu_torch.data import make_synthetic_scene
+    from gapro_tpu_torch.labeler import LabelerConfig
+    from gapro_tpu_torch.labeler import pipeline as lp
+
+    t_phase = time.perf_counter()
+    spent = {}  # seconds of each part of the phase
+
+    def mark(part: str) -> None:
+        spent[part] = time.perf_counter() - t_phase - sum(spent.values())
+
+    scenes = [make_synthetic_scene(seed=s, **LABELER_PRESETS["default"])
+              for s in range(LABELER_SCENES)]
+    n_boxes = [len(labeler_inputs(s)["instance_box"]) + 1 for s in scenes]  # + the floor
+    print("labeler, default preset: points a scene "
+          f"{sorted({len(s.xyz) for s in scenes})}, boxes (with the floor) {n_boxes}, "
+          f"superpoints {[int(s.spp.max()) + 1 for s in scenes]}", flush=True)
+
+    # warm pass, its fits recorded: gate (a)'s card side and the groups
+    lp.reset_overflow_stats()
+    with record_fits(lp, {}) as card:
+        card["labels"], sec = labeler_sweep(scenes, dev)
+    jobs_per_scene = [sum(j.scene == i for j in w) for w in card["jobs"]
+                      for i in range(LABELER_WINDOW)]
+    groups = [[(tb, qb, lp.next_bucket(len(ix), min_size=4))
+               for (tb, qb), ix in lp._job_buckets(w, lp.LabelerConfig()).items()]
+              for w in card["jobs"]]
+    mark("scenes and warm pass")
+    print(f"labeler warm pass: {LABELER_SCENES / sec:.3f} scenes/s; jobs a scene "
+          f"{jobs_per_scene}; fit groups (tb, qb, B) by window {groups}", flush=True)
+
+    # gate (c): finite wherever a fit wrote, and every fit finite
+    for s, out in enumerate(card["labels"]):
+        if not (np.isfinite(out[3]).all() and np.isfinite(out[4]).all()):
+            fail(f"labeler gate (c): scene {s}'s mu or var is not finite")
+    if any(not np.isfinite(r[k]).all() for w in card["fits"] for r in w for k in (0, 3, 4)):
+        fail("labeler gate (c): a fit's probs, mu or var is not finite")
+
+    # timed passes; the kernels of K1-K6 are counted (none runs on this path)
+    base = torch.cuda.memory_allocated()  # what the earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    rates, passes = [], []
+    for p in range(LABELER_PASSES):
+        lp.reset_overflow_stats()
+        labels, sec = labeler_sweep(scenes, dev)
+        rates.append(LABELER_SCENES / sec)
+        passes.append(labels)
+        print(f"labeler pass {p + 1}/{LABELER_PASSES}: {sec:.3f} s = {rates[-1]:.3f} scenes/s | "
+              + " ".join(f"{k}={v:.4f}" for k, v in lp.PHASE_STATS.items())
+              + f" | {lp.OVERFLOW_STATS}", flush=True)
+    launches = read_counts()
+    mark("timed passes")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print(f"labeler, default preset: scenes/s median {statistics.median(rates):.3f}, best "
+          f"{max(rates):.3f}; peak device memory {peak:.3f} GiB above what the earlier phases "
+          f"hold; launches of the port's kernels in the timed passes {launches} (the labeler "
+          "has none)", flush=True)
+
+    # gate (b): two card passes bit for bit, and a third with the caller's
+    # TF32 on (the fit turns it off for its products; the labels must not move)
+    if not same_labels(card["labels"], passes[0]):
+        fail("labeler gate (b): two card passes differ")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_labels, _ = labeler_sweep(scenes, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not same_labels(passes[0], tf32_labels):
+        fail("labeler gate (b): a pass with the caller's TF32 on differs from one with it off")
+    mark("gate (b): a pass with TF32 on")
+    print("labeler gate (b): the warm pass, timed pass 1 and a pass with the caller's "
+          "torch.backends.cuda.matmul.allow_tf32 on are identical bit for bit (sem, inst, prob, "
+          "mu, var)", flush=True)
+
+    # gate (a): scenes 0-3 as one window, card against the port on the CPU;
+    # the CPU side on one thread, so that its sums take one order on every run
+    # (PyTorch's CPU reductions split them by the thread team)
+    cfg = LabelerConfig()
+    window0 = scenes[:LABELER_WINDOW]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, feats_card = labeler_window(window0, dev)
+        _, feats_cpu = labeler_window(window0, "cpu")
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(feats_card, feats_cpu)):
+            fail("labeler gate (a): the pooled features differ between the card and the CPU")
+        first = labeler_first_step(window0, dev)
+        if not all(v <= NOISE_FACTOR for v in first.values()):
+            fail(f"labeler gate (a): the fits' start on the card against fp64, over the CPU fp32 "
+                 f"run's error: {first}")
+        mark("gate (a): features and the fits' start")
+        with record_fits(lp, {}) as cpu:
+            cpu["labels"], cpu_sec = labeler_sweep(window0, "cpu")
+        mark("gate (a): the CPU window")
+        parity = labeler_parity(dev)
+    finally:
+        torch.set_num_threads(threads)
+    jobs0 = card["jobs"][0]
+    noise = fit_ratio(lp._fit_jobs_batched(jobs0, [one_ulp_up(f) for f in feats_card], cfg),
+                      card["fits"][0])
+    with tf32_fits():
+        control = fit_ratio(lp._fit_jobs_batched(jobs0, feats_card, cfg), cpu["fits"][0])
+    numbers, bad = labeler_gate(
+        dict(jobs=card["jobs"][:1], fits=card["fits"][:1], labels=card["labels"][:LABELER_WINDOW]),
+        cpu, LABELER_WINDOW, bound=LABELER_FIT_BOUND)
+    print(f"labeler gate (a): scenes 0-{LABELER_WINDOW - 1}, card against the CPU ({cpu_sec:.2f} s "
+          f"there, one thread): pooled features identical; the fits' start against fp64 at "
+          + ", ".join(f"{k} {v:.3f}" for k, v in first.items())
+          + f" of the CPU fp32 run's rms error; {numbers['jobs']} identical jobs; after "
+          f"{cfg.training_iter} steps, in units of FIT_ATOL + FIT_RTOL |CPU|: mu and var at "
+          f"{numbers['fit_ratio']:.4f} (bound {LABELER_FIT_BOUND}; the card's one-ulp noise run "
+          f"{noise:.4f}; the TF32 control {control:.4f}); {numbers['flips']} of "
+          f"{numbers['confident']} confident fitted superpoints flip; every other point identical",
+          flush=True)
+    print("labeler gate (a): tests/test_parity_gp.py's six cases as lanes of one batch, card "
+          f"against the CPU {parity['card_cpu']:.4f} (bound {PARITY_FIT_BOUND}); one-ulp noise "
+          f"runs: card {parity['card_ulp']:.4f}, CPU {parity['cpu_ulp']:.4f}; the TF32 control "
+          f"{parity['tf32']:.4f}", flush=True)
+    if not parity["card_cpu"] <= PARITY_FIT_BOUND:
+        bad.append(f"tests/test_parity_gp.py's cases differ by {parity['card_cpu']:.4f} "
+                   f"(at most {PARITY_FIT_BOUND})")
+    if bad:
+        fail(f"labeler gate (a), card against CPU: {bad} ({numbers}, {parity})")
+    if not control > LABELER_FIT_BOUND:
+        fail(f"labeler gate (a): the TF32 control passes the bound ({control:.4f}, at most "
+             f"{LABELER_FIT_BOUND}): the gate cannot tell it from a sound fit")
+    mark("gate (a): parity cases, noise, control, check")
+
+    # the "real" preset, one pass
+    real = [make_synthetic_scene(seed=s, **LABELER_PRESETS["real"]) for s in range(LABELER_SCENES)]
+    lp.reset_overflow_stats()
+    _, sec = labeler_sweep(real, dev)
+    real_rate = LABELER_SCENES / sec
+    mark("real preset")
+    print(f"labeler, real preset ({len(real[0].xyz)} points a scene), one pass: {sec:.3f} s = "
+          f"{real_rate:.3f} scenes/s | "
+          + " ".join(f"{k}={v:.4f}" for k, v in lp.PHASE_STATS.items())
+          + f" | {lp.OVERFLOW_STATS}", flush=True)
+
+    # where the time goes
+    profile_request(lambda: labeler_sweep(window0, dev),
+                    f"labeler, one window ({LABELER_WINDOW} default-preset scenes)")
+    labeler_group_profile(window0, dev)
+    mark("profiles")
+    print(f"labeler phase: {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")", flush=True)
+    return dict(rates=rates, real_rate=real_rate, peak_gib=peak)
+
+
 def k4_case(xyz, valid, n_sample: int, what: str) -> dict:
     """K4 against its plain version on one input, bit for bit, timed (the
     wrapper: compaction, the kernel, the map back) with its bound; prints
@@ -1663,6 +2174,9 @@ def main() -> None:
           f"form before: {BALL_QUERY_TILED_B4_MS} ms)", flush=True)
     profile_request(run4, f"training step, batch {BATCH}")
     batch4_row_orders(prepare4(lb4.points, lb4.batch_size).batch.plan, cfg, dev)
+
+    # ---- 13. the GP labeler: bench.py's sweep, its gates and profile --------
+    labeler_phase(dev)
 
     tl, t4 = train_launches, trainer["launches"]
     req = [k5["shapes"][f"request round {i}"] for i in (1, 2, 3)]

@@ -3,8 +3,9 @@
 The reference exporter's wire format: ``{"length": N, "counts": [start,
 length, ...]}`` with 1-based run starts. ``rle_encode_rows`` encodes a batch
 of masks where they lie: the runs are found on the device and only they
-cross to the host, not the [K, N] masks. ``rle_decode`` is the numpy
-inverse, for evaluation and export.
+cross to the host, not the [K, N] masks. ``rle_encode`` is the same for
+one host mask, and ``rle_decode`` the numpy inverse, for evaluation and
+export.
 """
 
 from __future__ import annotations
@@ -28,6 +29,16 @@ def rle_encode_rows(masks: torch.Tensor) -> list:
     counts[1::2] -= counts[0::2]
     ends = np.cumsum(torch.bincount(rows, minlength=k).cpu().numpy())
     return [dict(length=int(n), counts=c) for c in np.split(counts.cpu().numpy(), ends[:-1])]
+
+
+def rle_encode(mask) -> dict:
+    """[N] bool numpy mask -> ``{"length", "counts"}`` (counts int64), as
+    the JAX package's ``rle_encode``."""
+    mask = np.asarray(mask).astype(bool)
+    padded = np.concatenate([[False], mask, [False]])
+    runs = np.flatnonzero(padded[1:] != padded[:-1]) + 1
+    runs[1::2] -= runs[::2]
+    return dict(length=int(mask.shape[0]), counts=runs.astype(np.int64))
 
 
 def rle_decode(rle: dict) -> np.ndarray:

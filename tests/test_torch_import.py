@@ -7,10 +7,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import gapro_tpu_torch
+from gapro_tpu_torch.labeler import generate_scene_labels
 from gapro_tpu_torch.models import isbnet, prepare
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -26,7 +28,11 @@ def test_port_imports_no_jax():
             "gapro_tpu_torch.data.augment", "gapro_tpu_torch.eval.instance_eval",
             "gapro_tpu_torch.eval.runner", "gapro_tpu_torch.train.checkpoint",
             "gapro_tpu_torch.train.config", "gapro_tpu_torch.tools.train",
-            "gapro_tpu_torch.tools.test"} <= set(mods)
+            "gapro_tpu_torch.tools.test", "gapro_tpu_torch.gp.linalg",
+            "gapro_tpu_torch.gp.variational", "gapro_tpu_torch.gp.fallback",
+            "gapro_tpu_torch.gp.ensemble", "gapro_tpu_torch.labeler.boxes",
+            "gapro_tpu_torch.labeler.pipeline", "gapro_tpu_torch.eval.pseudo",
+            "gapro_tpu_torch.tools.gen_ps"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -47,3 +53,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         [dict(xyz=[[0.0, 0.0, 0.0]], rgb=[[0.0, 0.0, 0.0]], spp=[0])], n_cap=128)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prepare.upload_point_batch(pb)
+
+
+def test_labeler_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    xyz = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_scene_labels(xyz, xyz, [0, 1], np.array([0]),
+                              np.array([[0, 0, 0, 1, 1, 1]], np.float32),
+                              np.array([1.0], np.float32))

@@ -1,15 +1,21 @@
-"""Weight bridge between a flax ISBNet variable tree and the port's
-``state_dict``, both ways.
+"""Weight bridge between a flax ISBNet or SPFormer variable tree and the
+port's ``state_dict``, both ways.
 
 The tree comes as nested numpy dicts with the collections ``params`` and
 ``batch_stats``. Module names carry over unchanged except flax's auto-named
-``Dense_i``, which is ``dense{i}`` in the port. Leaves map as:
+modules: ``Dense_i`` is ``dense{i}`` in the port,
+``MultiHeadDotProductAttention_0`` is ``attn`` and ``LayerNorm_0`` is
+``norm``. Leaves map as:
 
 * ``nn.Dense`` kernel [in, out] -> ``weight`` [out, in] (transposed);
+* the attention's ``query`` / ``key`` / ``value`` kernels [d, h, d/h] ->
+  ``weight`` [h * d/h, d], their biases [h, d/h] -> [h * d/h]; its ``out``
+  kernel [h, d/h, d] -> ``weight`` [d, h * d/h];
 * SubMConv ``kernel`` [27, Cin, Cout], ``down_kernel`` / ``up_kernel``
   [8, Cin, Cout] -> the same name and layout;
-* BatchNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``; batch stats
-  ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
+* BatchNorm and LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+  batch stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
+* SPFormer's learned queries ``decoder/query`` [Q, d] -> the same.
 
 ``load_flax_variables`` loads strictly, so a missing, extra or misshapen
 entry raises. ``to_flax_variables`` maps back, from the parameters and
@@ -33,12 +39,29 @@ _LEAF = {
 }
 
 
+_AUTO_NAMES = {"MultiHeadDotProductAttention_0": "attn", "LayerNorm_0": "norm"}
+_ATTN_PROJ = ("query", "key", "value")
+
+
 def _module_name(name: str) -> str:
-    return re.sub(r"^Dense_(\d+)$", r"dense\1", name)
+    return _AUTO_NAMES.get(name, re.sub(r"^Dense_(\d+)$", r"dense\1", name))
 
 
 def _flax_module_name(name: str) -> str:
-    return re.sub(r"^dense(\d+)$", r"Dense_\1", name)
+    inv = {v: k for k, v in _AUTO_NAMES.items()}
+    return inv.get(name, re.sub(r"^dense(\d+)$", r"Dense_\1", name))
+
+
+def _attn_leaf(path, key: str, arr):
+    """An attention projection's flax leaf -> its port layout, or None if
+    ``path`` is not an attention projection."""
+    if len(path) < 2 or path[-2] != "attn" or path[-1] not in _ATTN_PROJ + ("out",):
+        return None
+    if key == "kernel":
+        if path[-1] == "out":  # [h, d/h, d] -> [d, h * d/h]
+            return "weight", arr.reshape(-1, arr.shape[-1]).T
+        return "weight", arr.reshape(arr.shape[0], -1).T  # [d, h, d/h] -> [h * d/h, d]
+    return "bias", arr.reshape(-1)
 
 
 def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
@@ -51,7 +74,12 @@ def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
                 walk(val, path + (_module_name(key),), coll)
                 continue
             arr = np.asarray(val, np.float32)
-            if coll == "params" and key == "kernel" and arr.ndim == 2:
+            attn = _attn_leaf(path, key, arr) if coll == "params" else None
+            if attn is not None:
+                leaf, arr = attn
+            elif coll == "params" and key == "query":
+                leaf = key
+            elif coll == "params" and key == "kernel" and arr.ndim == 2:
                 leaf, arr = "weight", arr.T
             elif coll == "params" and key in ("kernel", "down_kernel", "up_kernel"):
                 leaf = key
@@ -85,7 +113,18 @@ def to_flax_variables(model: torch.nn.Module, grads: bool = False):
         if grads:
             t = t.grad if t.grad is not None else torch.zeros_like(t)
         arr = t.detach().cpu().numpy()
-        if leaf in ("kernel", "down_kernel", "up_kernel"):
+        if len(path) >= 2 and path[-2] == "attn":
+            h = model.get_submodule(".".join(path[:-1])).nhead
+            coll, key = "params", "kernel" if leaf == "weight" else "bias"
+            if leaf == "bias" and path[-1] != "out":
+                arr = arr.reshape(h, -1)
+            elif leaf == "weight" and path[-1] == "out":  # [d, h * d/h] -> [h, d/h, d]
+                arr = arr.T.reshape(h, -1, arr.shape[0])
+            elif leaf == "weight":  # [h * d/h, d] -> [d, h, d/h]
+                arr = arr.T.reshape(arr.shape[1], h, -1)
+        elif leaf == "query":
+            coll, key = "params", leaf
+        elif leaf in ("kernel", "down_kernel", "up_kernel"):
             coll, key = "params", leaf
         elif leaf == "weight" and arr.ndim == 2:
             coll, key, arr = "params", "kernel", arr.T

@@ -48,6 +48,21 @@ def segment_mean(data, seg_ids, num_segments: int, eps: float = 1e-12):
     return (s / torch.clamp(c, min=eps)).to(dtype)
 
 
+def segment_weighted_mean(data, seg_ids, weights, num_segments: int, eps: float = 1e-12):
+    """Weighted mean per segment; empty or zero-weight segments give 0.
+    Accumulates in fp32. With a voxel's member-point count as its weight,
+    this is the mean over the points of each segment, every point carrying
+    its voxel's value (SPFormer's point-resolution superpoint pooling)."""
+    dtype = data.dtype
+    w = weights.float()
+    data32 = data.float()
+    s = segment_sum(data32 * w.reshape(w.shape + (1,) * (data32.ndim - 1)), seg_ids,
+                    num_segments)
+    c = segment_sum(w, seg_ids, num_segments)
+    c = c.reshape(c.shape + (1,) * (s.ndim - 1))
+    return (s / torch.clamp(c, min=eps)).to(dtype)
+
+
 def _segment_extreme(data, seg_ids, num_segments: int, reduce: str):
     seg = _route_invalid(seg_ids, num_segments)
     if data.dtype.is_floating_point:

@@ -13,8 +13,8 @@ The ScanNet benchmark's rules as the reference applies them:
 * AP integrates the precision-recall curve with the [-0.5, 0, 0.5] step
   rule over IoU 0.5:0.05:0.9, plus 0.25.
 
-Intersections are one bincount per predicted mask. The box AP of SPFormer
-(``evaluate_box``) is not ported.
+Intersections are one bincount per predicted mask. ``evaluate_box`` is
+SPFormer's box AP over the same rules, matching by box IoU.
 """
 
 from __future__ import annotations
@@ -133,6 +133,82 @@ class ScanNetEval:
             k += 1
         return per_class_gts, per_class_preds, k
 
+    def assign_scene_box(self, preds: List[dict], coords, sem, inst, offset: int):
+        """SPFormer's box AP: the ground truth encoded and the predictions
+        filtered as in ``assign_scene``, but a prediction matches every
+        ground-truth instance of its class whose axis-aligned box (of the
+        instance's points) overlaps its own, with the IoU of the box
+        volumes. As in the reference, the rule that ignores an unmatched
+        prediction adds box-volume intersections to a point count."""
+        code = self._encode_gt(sem, inst)
+        void = ~np.isin(code // 1000, self.class_ids)
+        coords = np.asarray(coords)
+
+        uniq, counts = np.unique(code, return_counts=True)
+        is_inst = (uniq % 1000 >= 1) & np.isin(uniq // 1000, self.class_ids)
+        gt_codes = uniq[is_inst]
+        gt_counts = counts[is_inst]
+
+        per_class_gts: Dict[str, List[_GT]] = {ln: [] for ln in self.class_labels}
+        gt_by_code: Dict[int, _GT] = {}
+        gt_boxes: Dict[int, np.ndarray] = {}
+        for c, n in zip(gt_codes, gt_counts):
+            g = _GT(instance_id=int(c), vert_count=int(n))
+            per_class_gts[self.class_labels[int(c) // 1000 - 1]].append(g)
+            gt_by_code[int(c)] = g
+            pts = coords[code == c]
+            gt_boxes[int(c)] = np.concatenate([pts.min(0), pts.max(0)])
+
+        per_class_preds: Dict[str, List[_Pred]] = {ln: [] for ln in self.class_labels}
+        k = offset
+        for pred in preds:
+            label_id = int(pred["label_id"])
+            if not (1 <= label_id <= len(self.class_labels)):
+                continue
+            mask = pred["pred_mask"]
+            if isinstance(mask, dict):
+                mask = rle_decode(mask)
+            mask = np.asarray(mask) != 0
+            num = int(mask.sum())
+            if num < self.min_region_size:
+                continue
+            label_name = self.class_labels[label_id - 1]
+
+            if "box" in pred:  # a prediction may carry its own box
+                pbox = np.asarray(pred["box"])
+            else:
+                pts = coords[mask]
+                pbox = np.concatenate([pts.min(0), pts.max(0)])
+            # volumes stay in the coords dtype (float32 in practice): the
+            # reference never upcasts, and borderline IoU-vs-threshold
+            # comparisons are sensitive to the rounding regime
+            pred_vol = np.prod(np.clip(pbox[3:] - pbox[:3], 0.0, None))
+
+            p = _Pred(
+                pred_idx=k,
+                vert_count=num,
+                confidence=float(pred["conf"]),
+                void_intersection=int(mask[void].sum()),
+            )
+            same_cls = gt_codes // 1000 == label_id
+            for c, gn in zip(gt_codes[same_cls], gt_counts[same_cls]):
+                gbox = gt_boxes[int(c)]
+                inter = np.prod(np.clip(
+                    np.minimum(gbox[3:], pbox[3:]) - np.maximum(gbox[:3], pbox[:3]),
+                    0.0, None))
+                if inter > 0:
+                    gt_vol = np.prod(np.clip(gbox[3:] - gbox[:3], 0.0, None))
+                    iou = float(inter) / (gt_vol + pred_vol - inter)
+                    p.matched.append(dict(gt_code=int(c), iou=float(iou),
+                                          intersection=float(inter),
+                                          gt_vert_count=int(gn)))
+                    gt_by_code[int(c)].matched.append(
+                        dict(pred_idx=k, iou=iou, conf=p.confidence, intersection=inter)
+                    )
+            per_class_preds[label_name].append(p)
+            k += 1
+        return per_class_gts, per_class_preds, k
+
     # ------------------------------------------------------------------ #
 
     def _ap_single(self, scenes, label_name, iou_th, n_preds_total):
@@ -231,6 +307,18 @@ class ScanNetEval:
         offset = 0
         for preds, sem, inst in zip(pred_insts, sem_labels, inst_labels):
             gts_c, preds_c, offset = self.assign_scene(preds, sem, inst, offset)
+            scenes.append((gts_c, preds_c))
+        return self._aggregate(scenes, offset)
+
+    def evaluate_box(self, pred_insts, coords_list, sem_labels, inst_labels) -> dict:
+        """Box AP over box-IoU matches (``assign_scene_box``);
+        ``coords_list`` holds each scene's [N, 3] point coordinates."""
+        scenes = []
+        offset = 0
+        for preds, coords, sem, inst in zip(pred_insts, coords_list,
+                                            sem_labels, inst_labels):
+            gts_c, preds_c, offset = self.assign_scene_box(
+                preds, coords, sem, inst, offset)
             scenes.append((gts_c, preds_c))
         return self._aggregate(scenes, offset)
 

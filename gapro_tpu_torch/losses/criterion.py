@@ -21,7 +21,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from ..core.batching import gather_dense
-from ..core.segment import segment_max, segment_mean, segment_min
+from ..core.segment import segment_max, segment_mean, segment_min, segment_weighted_mean
 from ..models.common import jabs
 from .matcher import box_volume, hungarian_match, softplus
 
@@ -64,14 +64,30 @@ class Targets(NamedTuple):
     n_inst_overflow_voxels: torch.Tensor
 
 
+class PointwiseTargets(NamedTuple):
+    """The targets of the backbone pre-training stage (``semantic_only``):
+    the corner-offset labels alone (``corner_labels_only``)."""
+
+    corners_offset_labels: torch.Tensor  # [V, 6]
+    # not counted: the constant 0, as in the JAX package (corner_labels_only
+    # gives ids past inst_cap the last instance's corners)
+    n_inst_overflow_voxels: int = 0
+
+
 @torch.no_grad()
 def build_targets(voxel_instance, voxel_semantic, coords_float, spp, batch_idx, valid,
                   sp_dense_idx, n_spp: int, inst_cap: int, voxel_prob=None, voxel_mu=None,
-                  voxel_var=None, voxel_rgb=None) -> Targets:
+                  voxel_var=None, voxel_rgb=None, vox_weights=None,
+                  pool: str = "mean") -> Targets:
     """GT construction on the device: per-instance class (the semantic label
     of its lowest-index voxel), box, corner-offset labels, superpoint masks
     (fraction of a superpoint's voxels in the instance >= 0.5) and the
-    superpoint means of the GP labels and colours."""
+    superpoint pools of the GP labels and colours.
+
+    ``vox_weights`` ([V] member points per voxel) makes the mask fractions
+    and the mean pools point-weighted, as SPFormer pools points;
+    ``pool="max"`` takes each superpoint's largest label instead of the
+    mean."""
     v = voxel_instance.shape[0]
     B, S = sp_dense_idx.shape
     I = inst_cap
@@ -99,7 +115,9 @@ def build_targets(voxel_instance, voxel_semantic, coords_float, spp, batch_idx, 
     inst_batch = segment_max(torch.where(member, batch_idx.int(), -1), inst, I)
 
     onehot = (inst[:, None] == torch.arange(I, device=dev)[None, :]).float()  # [V, I]
-    sp_masks_flat = (segment_mean(onehot, spp, n_spp) >= 0.5).float()
+    frac = (segment_mean(onehot, spp, n_spp) if vox_weights is None
+            else segment_weighted_mean(onehot, spp, vox_weights, n_spp))
+    sp_masks_flat = (frac >= 0.5).float()
     d_masks = gather_dense(sp_masks_flat, sp_dense_idx).transpose(1, 2)  # [B, I, S]
 
     inst_valid_row = (inst_cls >= 0) & has_member
@@ -109,18 +127,48 @@ def build_targets(voxel_instance, voxel_semantic, coords_float, spp, batch_idx, 
     gt_boxes = torch.where(gt_valid[..., None], boxes[None], 0.0)
     d_masks = torch.where(gt_valid[..., None], d_masks, 0.0)
 
-    def pool(x):
+    def pool_flat(x):
+        x = x.float()
+        if pool == "max":
+            neg = -1e10
+            out = segment_max(torch.where(valid.reshape(valid.shape + (1,) * (x.ndim - 1)), x,
+                                          neg), spp, n_spp)
+            return torch.where(out <= neg, 0.0, out)
+        if vox_weights is None:
+            return segment_mean(x, spp, n_spp)
+        return segment_weighted_mean(x, spp, vox_weights, n_spp)
+
+    def pool_dense(x):
         if x is None:
             return torch.zeros((B, S), dtype=torch.float32, device=dev)
-        return gather_dense(segment_mean(x.float(), spp, n_spp), sp_dense_idx)
+        return gather_dense(pool_flat(x), sp_dense_idx)
 
     sp_rgb = (torch.zeros((B, S, 3), dtype=torch.float32, device=dev) if voxel_rgb is None
-              else gather_dense(segment_mean(voxel_rgb.float(), spp, n_spp), sp_dense_idx))
+              else gather_dense(pool_flat(voxel_rgb), sp_dense_idx))
     return Targets(
         gt_cls=gt_cls, gt_boxes=gt_boxes, gt_sp_masks=d_masks, gt_valid=gt_valid,
-        sp_prob=pool(voxel_prob), sp_mu=pool(voxel_mu), sp_var=pool(voxel_var), sp_rgb=sp_rgb,
+        sp_prob=pool_dense(voxel_prob), sp_mu=pool_dense(voxel_mu), sp_var=pool_dense(voxel_var),
+        sp_rgb=sp_rgb,
         corners_offset_labels=corners, num_gts=gt_valid.sum().int(),
         n_inst_overflow_voxels=(valid & (voxel_instance >= I)).sum().int())
+
+
+@torch.no_grad()
+def corner_labels_only(voxel_instance, coords_float, valid, inst_cap: int):
+    """Per-voxel box-corner offset labels without the superpoint and
+    instance targets: the backbone pre-training stage (``semantic_only``)
+    has no decoder outputs, and no ``sp_dense_idx``, but trains the offset
+    head."""
+    I = inst_cap
+    inst = torch.where(valid & (voxel_instance >= 0), voxel_instance, -1)
+    ok = inst >= 0
+    posinf = 1e10
+    cmin = segment_min(torch.where(ok[:, None], coords_float, posinf), inst, I)
+    cmax = segment_max(torch.where(ok[:, None], coords_float, -posinf), inst, I)
+    # ids past the cap read the last instance, as JAX's clamped gathers do
+    at = inst.clamp(0, I - 1).long()
+    corners = torch.cat([cmin[at] - coords_float, cmax[at] - coords_float], 1)
+    return torch.where(ok[:, None], corners, -100.0)
 
 
 def _masked_mean(x, mask, eps=1e-6):
@@ -300,23 +348,26 @@ def instance_loss(outputs, targets: Targets, cfg: CriterionConfig, assign=None):
 def isbnet_loss(outputs, prepared, targets: Targets, cfg: CriterionConfig,
                 assign=None) -> Dict[str, torch.Tensor]:
     """The full criterion; returns a dict with ``loss``, every weighted term
-    and the ``ovf_*`` counters (logged, not part of the loss). ``assign`` is
-    passed on to ``instance_loss``."""
-    if cfg.semantic_only:
-        raise NotImplementedError("semantic_only (backbone pre-training) is not ported yet")
+    and the ``ovf_*`` counters the outputs carry (logged, not part of the
+    loss). ``assign`` is passed on to ``instance_loss``. With
+    ``semantic_only`` (backbone pre-training) the loss is the pointwise
+    terms alone, and ``targets`` need only hold ``corners_offset_labels``
+    (``PointwiseTargets``)."""
     losses = {}
-    if cfg.trainall:
+    if cfg.semantic_only or cfg.trainall:
         pw = pointwise_loss(outputs, prepared.voxel_semantic, prepared.voxel_instance,
                             targets.corners_offset_labels, prepared.batch.coords_float,
                             prepared.batch.valid, cfg)
-        losses.update({k: v * 0.25 for k, v in pw.items()})
-    inst = instance_loss(outputs, targets, cfg, assign=assign)
-    for k, w in cfg.loss_weight:
-        losses[k] = inst[k] * w
+        losses.update(pw if cfg.semantic_only else {k: v * 0.25 for k, v in pw.items()})
+    if not cfg.semantic_only:
+        inst = instance_loss(outputs, targets, cfg, assign=assign)
+        for k, w in cfg.loss_weight:
+            losses[k] = inst[k] * w
     losses["loss"] = sum(losses.values())
     dev = losses["loss"].device
     for k in ("ovf_fg_voxels", "ovf_spp_slots", "ovf_plan_voxels", "ovf_window_escapees"):
         if k in outputs:
             losses[k] = torch.as_tensor(outputs[k], dtype=torch.float32, device=dev)
-    losses["ovf_inst_voxels"] = targets.n_inst_overflow_voxels.float()
+    losses["ovf_inst_voxels"] = torch.as_tensor(targets.n_inst_overflow_voxels,
+                                                dtype=torch.float32, device=dev)
     return losses

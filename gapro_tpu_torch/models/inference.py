@@ -1,11 +1,17 @@
-"""Instance extraction from ISBNet proposals (``gapro_tpu/models/inference.py``).
+"""Instance extraction from ISBNet and SPFormer proposals
+(``gapro_tpu/models/inference.py``).
 
-On the device: score = sqrt(softmax(cls)[:, :C] * clip(conf, 0, 1)), flat
-top-K over (proposal, class), npoint threshold and matrix NMS at superpoint
-resolution, then expansion to points with superpoint refinement (a point
-keeps the mask where at least half of its own superpoint does), and the
-run boundaries of the kept masks. On the host: the benchmark's records
-``{scan_id, label_id, conf, pred_mask}`` (RLE).
+ISBNet, on the device: score = sqrt(softmax(cls)[:, :C] * clip(conf, 0,
+1)), flat top-K over (proposal, class), npoint threshold and matrix NMS at
+superpoint resolution, then expansion to points with superpoint refinement
+(a point keeps the mask where at least half of its own superpoint does),
+and the run boundaries of the kept masks. On the host: the benchmark's
+records ``{scan_id, label_id, conf, pred_mask}`` (RLE).
+
+SPFormer (the final decoder head): score = softmax(cls)[:, :C] * score
+head, flat top-K (ties to the lower index, as ``lax.top_k``), mask = logit
+> 0, the score times the mean sigmoid inside the mask; no NMS. The point
+masks cross to the host bit-packed.
 
 The s3dis-only options of the JAX ``TestConfig`` (``sem2ins_classes``,
 ``x4_split``) are not ported.
@@ -22,7 +28,7 @@ import torch
 from ..core.bucketing import next_bucket
 from ..core.segment import segment_mean, segment_sum
 from ..ops.nms import matrix_nms, stable_topk
-from ..utils.rle import rle_encode_rows
+from ..utils.rle import rle_encode, rle_encode_rows
 
 
 @dataclass(frozen=True)
@@ -149,3 +155,73 @@ def get_instances(scan_id: str, outputs: dict, batch, point_spp: np.ndarray,
     return [dict(scan_id=scan_id, label_id=int(labels[j]) + cfg.label_offset,
                  conf=float(scores[j]), pred_mask=rles[j])
             for j in range(len(kept))]
+
+
+def spformer_select(cls_logits, score_logits, mask_logits, spp_weights, topk_insts: int,
+                    num_class: int):
+    """cls_logits [Q, C+1], score_logits [Q], mask_logits [Q, S], spp_weights
+    [S] -> (masks [K, S] bool, cls [K], scores [K], npoints [K]),
+    K = ``topk_insts``."""
+    C = num_class
+    scores = torch.softmax(cls_logits, -1)[:, :C] * score_logits[:, None]  # [Q, C]
+    top_scores, top_idx = stable_topk(scores.reshape(-1), topk_insts)
+    q_idx = torch.div(top_idx, C, rounding_mode="floor")
+    cls_ids = (top_idx % C).int()
+    ml = mask_logits[q_idx]  # [K, S]
+    masks = (ml > 0) & (spp_weights > 0)[None, :]
+    denom = (masks * spp_weights[None, :]).sum(1)
+    mask_scores = (torch.sigmoid(ml) * masks * spp_weights[None, :]).sum(1) / (denom + 1e-6)
+    return masks, cls_ids, top_scores * mask_scores, denom
+
+
+def _packbits(masks):
+    """[K, N] bool -> [K, ceil(N / 8)] uint8, ``np.packbits(axis=1)``'s
+    layout (the first column in the top bit)."""
+    k, n = masks.shape
+    m = torch.nn.functional.pad(masks.to(torch.uint8), (0, -n % 8)).reshape(k, -1, 8)
+    bits = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=masks.device)
+    return (m * bits).sum(-1, dtype=torch.uint8)
+
+
+def spformer_postprocess(outputs, spp_vox, valid, point2voxel, topk_insts: int,
+                         num_class: int):
+    """The device stage for batch item 0: superpoint weights, selection and
+    expansion to points -> (packed point masks [K, ceil(N / 8)], cls [K],
+    scores [K], points per mask [K])."""
+    sp_dense_idx = outputs["sp_dense_idx"][0]
+    sp_dense_valid = outputs["sp_dense_valid"][0]
+    s = sp_dense_idx.shape[0]
+    vcap = spp_vox.shape[0]
+    dev = spp_vox.device
+
+    valid_vox = valid & (spp_vox >= 0)
+    counts_flat = segment_sum(valid_vox.float(), torch.where(valid_vox, spp_vox, -1), vcap)
+    spp_weights = torch.where(sp_dense_valid, counts_flat[sp_dense_idx.clamp(min=0).long()], 0.0)
+    masks, cls_ids, scores, _ = spformer_select(
+        outputs["labels"][-1][0], outputs["scores"][-1][0], outputs["masks"][-1][0],
+        spp_weights, topk_insts, num_class)
+
+    slot_of_flat = torch.full((vcap + 1,), -1, dtype=torch.int32, device=dev)
+    slot_of_flat[sp_dense_idx[sp_dense_valid].long()] = torch.arange(
+        s, dtype=torch.int32, device=dev)[sp_dense_valid]
+    slot_of_flat[vcap] = -1
+    vox_slot = torch.where(valid_vox, slot_of_flat[spp_vox.clamp(0, vcap).long()], -1)
+    point_slot = torch.where(point2voxel >= 0, vox_slot[point2voxel.clamp(min=0).long()], -1)
+    pm = torch.where(point_slot[None, :] >= 0, masks[:, point_slot.clamp(min=0).long()], False)
+    return _packbits(pm), cls_ids, scores, pm.sum(1)
+
+
+def spformer_get_instances(scan_id: str, outputs: dict, batch, point_spp, point2voxel,
+                           n_points: int, num_class: int = 18, topk_insts: int = 100,
+                           score_thr: float = 0.0, npoint_thr: int = 100) -> List[dict]:
+    """SPFormer's batch-1 proposals -> [{scan_id, label_id, conf, pred_mask
+    (rle)}] (``point_spp`` is not read, as in the JAX package).
+    ``point2voxel`` lies on the model's device; one copy brings the packed
+    masks, classes, scores and point counts to the host."""
+    packed, cls_ids, scores, npts = spformer_postprocess(
+        outputs, batch.spp, batch.valid, point2voxel.int(), topk_insts, num_class)
+    packed, cls_ids, scores, npts = (t.cpu().numpy() for t in (packed, cls_ids, scores, npts))
+    masks_pt = np.unpackbits(packed, axis=1, count=point2voxel.shape[0]).astype(bool)
+    return [dict(scan_id=scan_id, label_id=int(cls_ids[i]) + 1, conf=float(scores[i]),
+                 pred_mask=rle_encode(masks_pt[i][:n_points]))
+            for i in range(len(masks_pt)) if scores[i] > score_thr and npts[i] > npoint_thr]

@@ -14,7 +14,10 @@ statistics) and that runs without a graph in eval mode.
 ``cfg.fixed_modules`` freezes modules as the JAX package does: a frozen
 backbone or point-wise head stays in eval mode under ``model.train()`` and
 its output is detached; ``train/state.py`` leaves every frozen module out of
-the optimizer. ``semantic_only`` (backbone pre-training) is not ported yet.
+the optimizer. ``cfg.semantic_only`` is the backbone pre-training stage:
+the model holds only the backbone and the point-wise heads, and ``forward``
+returns their outputs (``semantic_scores``, ``corners_offset``,
+``box_conf``, ``box_preds``, ``voxel_feats``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ class ISBNetConfig:
     instance_classes: int = 18
     semantic_classes: int = 19
     with_coords: bool = True
+    semantic_only: bool = False
     mask_dim_out: int = 32
     dec_dim: int = 128
     n_sample_pa1: int = 2048
@@ -56,6 +60,16 @@ class ISBNetConfig:
     fixed_modules: tuple = ()
     spp_cap: int = 4096
     fg_cap_ratio: float = 1.0
+
+    @property
+    def unet_width(self) -> int:
+        """The U-Net's first-level width."""
+        return self.channels
+
+    @property
+    def unet_levels(self) -> int:
+        """The U-Net's levels."""
+        return self.num_blocks
 
 
 # Modules whose output the JAX model gates when frozen, with the names that
@@ -98,6 +112,16 @@ class ISBNet(nn.Module):
         self.semantic_linear = MLP(c, cfg.semantic_classes, 2)
         self.offset_vertices_linear = MLP(c, 6, 2)
         self.box_conf_linear = MLP(c, 1, 2)
+        if not cfg.semantic_only:
+            self._build_instance_modules(cfg)
+        seeded_init_(self, seed)
+        self.to(resolve_device(device))
+        self.eval()
+
+    def _build_instance_modules(self, cfg: ISBNetConfig) -> None:
+        """Everything after the point-wise heads: the superpoint heads, the
+        aggregators, the query heads and the dynamic mask head."""
+        c = cfg.channels
         self.mu_linear = MLP(c, 1, 3)
         self.logvar_linear = MLP(c, 1, 3)
         rs = cfg.radius_scale
@@ -123,9 +147,6 @@ class ISBNet(nn.Module):
         self.inst_mask_head0 = ConvBlock1d(dd, dd)
         self.inst_mask_head1 = ConvBlock1d(dd, dd)
         self.controller = nn.Linear(dd, sum(self.weight_nums) + sum(self.bias_nums))
-        seeded_init_(self, seed)
-        self.to(resolve_device(device))
-        self.eval()
 
     # ------------------------------------------------------------------ #
 
@@ -207,6 +228,8 @@ class ISBNet(nn.Module):
         box_preds = corners_offset + batch.coords_float.repeat(1, 2)
         out: Dict[str, object] = dict(semantic_scores=sem_scores, corners_offset=corners_offset,
                                       box_conf=box_conf, box_preds=box_preds, voxel_feats=feats)
+        if cfg.semantic_only:
+            return out, None
 
         # background filter on superpoint-pooled semantics
         sem_sm = torch.softmax(sem_scores, 1)
@@ -262,6 +285,8 @@ class ISBNet(nn.Module):
         training mode; in eval mode it runs under ``no_grad``."""
         with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
             out, mid = self.trunk(batch)
+            if self.cfg.semantic_only:
+                return out
             agg1 = mid["agg1"]
             agg2 = self.point_aggregator2(agg1.locs, agg1.feats, agg1.boxes, agg1.valid,
                                           sampled_before=True)
@@ -280,6 +305,8 @@ class ISBNet(nn.Module):
         masking out stage-1 candidates whose superpoint a predicted mask of
         an earlier round already covers. Proposals are concatenated over
         rounds (P = sum(n_sample_arr))."""
+        if self.cfg.semantic_only:
+            raise ValueError("a semantic_only model has no instance path: call forward")
         out, mid = self.trunk(batch)
         agg1 = mid["agg1"]
         B = agg1.valid.shape[0]

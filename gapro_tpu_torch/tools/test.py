@@ -1,15 +1,19 @@
-"""Inference and AP evaluation of ISBNet: the port of ``tools/test.py``.
+"""Inference and AP evaluation of ISBNet or SPFormer: the port of
+``tools/test.py``.
 
     python -m gapro_tpu_torch.tools.test configs/isbnet_scannetv2.yaml runs/isbnet/latest
+    python -m gapro_tpu_torch.tools.test configs/spformer_scannetv2.yaml runs/spf/latest
     python -m gapro_tpu_torch.tools.test configs/tiny_synthetic.yaml --synthetic 2 --device cpu
 
 ``run_test(cfg, checkpoint, ...)`` serves each scene of a split at batch 1
-(prepare -> ``forward_inference`` with the rounds (192, 128, 64) ->
-``get_instances``), times each scene on the host clock with the device
-synchronised, optionally writes the ScanNet benchmark's submission format
-(``--out``), and scores the instances with ``ScanNetEval``. Without a
-checkpoint the weights are drawn from ``--seed``. SPFormer, the s3dis
-``x4_split`` and ``--save_pointwise`` are not ported yet.
+(prepare -> ISBNet's ``forward_inference`` with the rounds (192, 128, 64)
+-> ``get_instances``, or SPFormer's forward -> ``spformer_get_instances``),
+times each scene on the host clock with the device synchronised, optionally
+writes the ScanNet benchmark's submission format (``--out``), and scores
+the instances with ``ScanNetEval``: AP, and for SPFormer also box AP, as
+the reference does. Without a checkpoint the weights are drawn from
+``--seed``. The s3dis ``x4_split`` and ``--save_pointwise`` are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 from ..data.dataset import build_dataloader
 from ..device import resolve_device
 from ..eval.instance_eval import SCANNET_INSTANCE_CLASSES, ScanNetEval
-from ..models.inference import TestConfig, get_instances
+from ..eval.runner import infer_scene_instances, make_infer_fn
 from ..train.checkpoint import load_model_weights
 from ..train.config import load_config
 from ..utils.rle import rle_decode
@@ -42,7 +46,8 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
     """Serve and score the config's test split (or ``dataset``) on one
     device (``cuda`` unless named). ``model`` replaces the one built from
     the config and ``checkpoint``. Returns the per-scene seconds, the
-    instance records and, with ``evaluate``, the AP dict."""
+    instance records and, with ``evaluate``, the AP dict (``result``) and
+    for SPFormer the box AP dict (``box_result``)."""
     log = logging.getLogger("test")
     dev = resolve_device(device)
     if model is None:
@@ -53,10 +58,11 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
     model.eval()
     if dataset is None:
         dataset = build_dataset(cfg, synthetic, training=False)
-    tc = TestConfig.from_dict(cfg.get("test", {}))
+    model_type = cfg.model.type
+    infer = make_infer_fn(model, model_type)
     prepare = make_prepare(cfg, dev)
 
-    times, all_preds, all_sems, all_insts = [], [], [], []
+    times, all_preds, all_sems, all_insts, all_coords = [], [], [], [], []
     for lb in build_dataloader(dataset, 1, training=False, drop_last=False):
         scene, scan_id = lb.scenes[0], lb.scan_ids[0]
         n_points = len(scene["xyz"])
@@ -64,9 +70,10 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         prepared = prepare(lb.points, 1)
-        outputs = model.forward_inference(prepared.batch)
-        insts = get_instances(scan_id, outputs, prepared.batch, np.asarray(scene["spp"]),
-                              prepared.point2voxel, n_points, tc)
+        outputs = infer(prepared.batch)
+        insts = infer_scene_instances(model_type, outputs, prepared.batch, scene["spp"],
+                                      prepared.point2voxel, n_points, scan_id,
+                                      cfg.get("test", {}))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
@@ -74,18 +81,23 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
         all_preds.append(insts)
         all_sems.append(scene["semantic"])
         all_insts.append(scene["instance"])
+        all_coords.append(scene["xyz"])
         if out:
             export_benchmark(out, scan_id, insts, n_points)
     if times:
         log.info("Average run time: %.4fs (median: %.4fs)", float(np.mean(times)),
                  float(np.median(times)))
-    result = None
+    result = box_result = None
     if evaluate:
         ev = ScanNetEval(SCANNET_INSTANCE_CLASSES, dataset_name=cfg.data.type)
         result = ev.evaluate(all_preds, all_sems, all_insts)
         log.info("AP %.4f  AP50 %.4f  AP25 %.4f", result["all_ap"], result["all_ap_50%"],
                  result["all_ap_25%"])
-    return dict(seconds=times, preds=all_preds, result=result)
+        if model_type == "spformer":
+            box_result = ev.evaluate_box(all_preds, all_coords, all_sems, all_insts)
+            log.info("Box AP %.4f  Box AP50 %.4f  Box AP25 %.4f", box_result["all_ap"],
+                     box_result["all_ap_50%"], box_result["all_ap_25%"])
+    return dict(seconds=times, preds=all_preds, result=result, box_result=box_result)
 
 
 def export_benchmark(out_dir: str, scan_id: str, instances, n_points: int) -> None:
@@ -120,6 +132,9 @@ def main(argv=None) -> None:
                    synthetic=args.synthetic, out=args.out, evaluate=not args.no_eval)
     if res["result"] is not None:
         print(json.dumps({k: v for k, v in res["result"].items() if k != "classes"}))
+    if res["box_result"] is not None:
+        print(json.dumps({"box_" + k: v for k, v in res["box_result"].items()
+                          if k != "classes"}))
 
 
 if __name__ == "__main__":

@@ -1,17 +1,24 @@
-"""Train ISBNet on one device: the port of ``tools/train.py``.
+"""Train ISBNet or SPFormer on one device: the port of ``tools/train.py``.
 
-    python -m gapro_tpu_torch.tools.train configs/isbnet_scannetv2.yaml --work_dir runs/isbnet
+    python -m gapro_tpu_torch.tools.train configs/isbnet_backbone_scannetv2.yaml \\
+        --work_dir runs/backbone
+    python -m gapro_tpu_torch.tools.train configs/isbnet_scannetv2.yaml --work_dir runs/isbnet \\
+        --pretrain runs/backbone/best
+    python -m gapro_tpu_torch.tools.train configs/spformer_scannetv2.yaml --work_dir runs/spf
     python -m gapro_tpu_torch.tools.train configs/tiny_synthetic.yaml --synthetic 2 \\
         --epochs 2 --device cpu
 
 ``train(cfg, work_dir, ...)`` is the loop, for callers that build the
 config in code (``train/config.py:AttrDict``) and may hand in their own
 datasets: per epoch the learning rate (cosine after ``step_epoch``, or
-poly), the training batches through ``make_train_step``, per-loss means
-into ``metrics.jsonl``, validation by AP on epochs that are a power of two
-or a multiple of ``save_freq``, and a checkpoint (``latest``, ``best``,
-``epoch_<e>``). ``--dp``, ``--only_backbone``, ``semantic_only`` configs
-and SPFormer are not ported yet and raise ``NotImplementedError``.
+poly, SPFormer's default), the training batches through the model's step,
+per-loss means into ``metrics.jsonl``, validation on epochs that are a
+power of two or a multiple of ``save_freq`` (AP, or for a
+``semantic_only`` model the point-wise mIoU), and a checkpoint
+(``latest``, ``best`` by the validation metric, ``epoch_<e>``).
+``--only_backbone`` trains ISBNet's backbone stage (``semantic_only``);
+its checkpoint starts the full stage through ``--pretrain``. ``--dp`` is
+not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,24 +44,42 @@ from ..train.checkpoint import (is_keep_epoch, load_checkpoint, load_model_weigh
                                 merge_state_dict, save_checkpoint)
 from ..train.config import load_config
 from ..train.state import cosine_lr_after_step, create_train_state, poly_lr
-from ..train.step import make_train_step
+from ..train.step import make_spformer_train_step, make_train_step
 
 
-def _isbnet_config(cfg) -> dict:
-    if cfg.model.type != "isbnet":
-        raise NotImplementedError(f"model type {cfg.model.type!r}: only ISBNet is ported")
-    mk = {k: v for k, v in cfg.model.items() if k not in ("type", "semantic_only")}
-    if cfg.model.get("semantic_only", False):
-        raise NotImplementedError("semantic_only (backbone pre-training) is not ported yet")
+def _model_kwargs(cfg) -> dict:
+    """The config's model section as the model config's keyword arguments."""
+    mk = {k: v for k, v in cfg.model.items() if k != "type"}
     mk["fixed_modules"] = tuple(mk.get("fixed_modules") or ())
     return mk
 
 
+def model_config(cfg):
+    """The config's ``ISBNetConfig`` or ``SPFormerConfig``."""
+    mk = _model_kwargs(cfg)
+    if cfg.model.type == "isbnet":
+        return ISBNetConfig(**mk)
+    if cfg.model.type == "spformer":
+        from ..models.spformer import SPFormerConfig
+
+        return SPFormerConfig(**mk)
+    raise ValueError(f"model type {cfg.model.type!r}")
+
+
 def build_model(cfg, device=None, seed: int = 0):
-    """The config's ISBNet with weights drawn from ``seed`` on ``device``,
-    and its criterion's config."""
-    crit = CriterionConfig(**dict(cfg.get("criterion", {})))
-    return ISBNet(ISBNetConfig(**_isbnet_config(cfg)), seed=seed, device=device), crit
+    """The config's ISBNet or SPFormer with weights drawn from ``seed`` on
+    ``device``, and its criterion's config."""
+    mcfg = model_config(cfg)
+    ck = dict(cfg.get("criterion", {}))
+    if isinstance(mcfg, ISBNetConfig):
+        return ISBNet(mcfg, seed=seed, device=device), CriterionConfig(**ck)
+    from ..losses.spformer_criterion import SPFormerCriterionConfig
+    from ..models.spformer import SPFormer
+
+    for key in ("loss_weight", "cost_weight"):
+        if key in ck:
+            ck[key] = tuple(ck[key])
+    return SPFormer(mcfg, seed=seed, device=device), SPFormerCriterionConfig(**ck)
 
 
 def voxel_cfg(cfg) -> VoxelCfg:
@@ -87,7 +112,7 @@ def make_prepare(cfg, device) -> Callable:
     """``prepare(point_batch, batch_size)`` on ``device`` with the config's
     flat superpoint capacity and plan shrink; the voxel capacity is the
     batch's point capacity."""
-    num_levels = cfg.model.get("num_blocks", 7)
+    num_levels = model_config(cfg).unet_levels
     spp_cap = cfg.model.spp_cap
     shrink = read_plan_shrink(cfg.data)
 
@@ -121,7 +146,7 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
           val_scenes: Optional[int] = None, num_workers: Optional[int] = None, profile: int = 0,
           dataset=None, val_dataset=None, on_stage: Optional[Callable[[str], None]] = None,
           on_step: Optional[Callable[[dict], None]] = None) -> dict:
-    """Train ``cfg``'s ISBNet on one device (``cuda`` unless named).
+    """Train ``cfg``'s model on one device (``cuda`` unless named).
 
     ``dataset`` / ``val_dataset`` replace the config's. ``on_stage(name)``
     is called as each stage of a step ends: ``loaded`` (the batch came from
@@ -153,10 +178,12 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
         start_epoch = restore(resume, state) + 1
         log.info("resumed from %s at epoch %d", resume, start_epoch)
     mark = on_stage or _no_mark
-    step_fn = make_train_step(model, crit, on_stage=on_stage)
+    make_step = make_spformer_train_step if cfg.model.type == "spformer" else make_train_step
+    step_fn = make_step(model, crit, on_stage=on_stage)
 
+    # ISBNet: cosine after step_epoch; SPFormer: PolyLR, power 0.9
     epochs = cfg.train.epochs
-    schedule = cfg.train.get("schedule", "cosine")
+    schedule = cfg.train.get("schedule", "poly" if cfg.model.type == "spformer" else "cosine")
 
     def lr_at(epoch):
         if schedule == "poly":
@@ -210,7 +237,7 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
 
             is_best = False
             if val_dataset is not None and is_keep_epoch(epoch, save_freq):
-                metric, detail = validate(model, "isbnet", val_dataset, cfg, log,
+                metric, detail = validate(model, cfg.model.type, val_dataset, cfg, log,
                                           lambda lb: prepare(lb.points, 1), max_scenes=val_scenes)
                 record.update(detail)
                 if metric > best_metric:
@@ -272,10 +299,15 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.dp > 1:
         raise NotImplementedError("--dp: data-parallel training is not ported yet")
-    if args.only_backbone:
-        raise NotImplementedError("--only_backbone: semantic_only training is not ported yet")
 
     cfg = load_config(args.config)
+    if args.only_backbone:
+        # the backbone stage of ISBNet's two-stage recipe; as in the JAX CLI,
+        # the criterion's flag is set only where the config has the key
+        cfg.model["semantic_only"] = True
+        cfg.model["fixed_modules"] = []
+        if "semantic_only" in cfg.get("criterion", {}):
+            cfg.criterion["semantic_only"] = True
     if args.trainall:
         cfg.model["semantic_only"] = False
         cfg.model["fixed_modules"] = []

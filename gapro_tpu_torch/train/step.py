@@ -1,56 +1,93 @@
-"""The single-device ISBNet training step (``gapro_tpu/train/step.py``).
+"""The single-device training steps (``gapro_tpu/train/step.py``).
 
 ``make_train_step(model, crit_cfg)`` returns ``step(state, prepared, lr) ->
-(state, losses)``: the training-mode forward (which moves every BatchNorm's
-running statistics once), the targets, Hungarian matching and the criterion,
-the backward (the sparse convs' through ``sparse/conv.py:SubmConvFn``) and
-one AdamW update. The SPFormer step and the data-parallel step are not
-ported yet.
+(state, losses)`` for ISBNet: the training-mode forward (which moves every
+BatchNorm's running statistics once), the targets, Hungarian matching and the
+criterion, the backward (the sparse convs' through
+``sparse/conv.py:SubmConvFn``) and one AdamW update. With
+``crit_cfg.semantic_only`` (the backbone pre-training stage) the targets are
+the corner-offset labels alone and nothing is matched.
+``make_spformer_train_step`` is the same for SPFormer, whose targets pool
+the labels at point resolution (``vox_weights``) and by the model's
+``pool``. The data-parallel step is not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
-from ..losses.criterion import CriterionConfig, build_targets, isbnet_loss, match
+from ..losses.criterion import (CriterionConfig, PointwiseTargets, build_targets,
+                                corner_labels_only, isbnet_loss, match)
 
 
 def _no_mark(name: str) -> None:
     pass
 
 
+def _targets(prepared, outputs, inst_cap: int, **kw):
+    """``build_targets`` for the model outputs of ``prepared``'s batch."""
+    b = prepared.batch
+    if "sp_dense_idx" not in outputs:
+        # the JAX package fails here with a KeyError: --only_backbone makes
+        # the model semantic_only but sets the criterion's flag only where
+        # the config has the key (tools/train.py:128-133)
+        raise ValueError(
+            "the model is semantic_only (no superpoint outputs) but the criterion is not: "
+            "set criterion.semantic_only in the config (--only_backbone sets it only where "
+            "the config has the key)")
+    return build_targets(
+        prepared.voxel_instance, prepared.voxel_semantic, b.coords_float, b.spp, b.batch_idx,
+        b.valid, outputs["sp_dense_idx"], b.n_spp, inst_cap, voxel_prob=prepared.voxel_prob,
+        voxel_mu=prepared.voxel_mu, voxel_var=prepared.voxel_var, voxel_rgb=prepared.voxel_rgb,
+        **kw)
+
+
 def _loss_fn(model, prepared, crit_cfg: CriterionConfig, assign=None, mark=_no_mark):
     """Forward (in the model's mode), targets, matching and criterion.
     Returns ``(loss, (losses, aux))``; ``aux`` holds the ``outputs``, the
-    ``targets`` and the assignment used (``assign``, or the matcher's).
-    ``mark`` is called after the forward and after targets and matching."""
+    ``targets`` and the assignment used (``assign``, or the matcher's; None
+    with ``semantic_only``). ``mark`` is called after the forward and after
+    targets and matching."""
     b = prepared.batch
     outputs = model(b)
     mark("forward")
-    targets = build_targets(
-        prepared.voxel_instance, prepared.voxel_semantic, b.coords_float, b.spp, b.batch_idx,
-        b.valid, outputs["sp_dense_idx"], b.n_spp, crit_cfg.inst_cap,
-        voxel_prob=prepared.voxel_prob, voxel_mu=prepared.voxel_mu,
-        voxel_var=prepared.voxel_var, voxel_rgb=prepared.voxel_rgb)
-    if assign is None:
-        assign = match(outputs, targets)
+    if crit_cfg.semantic_only:
+        targets = PointwiseTargets(corner_labels_only(
+            prepared.voxel_instance, b.coords_float, b.valid, crit_cfg.inst_cap))
+        assign = None
+    else:
+        targets = _targets(prepared, outputs, crit_cfg.inst_cap)
+        if assign is None:
+            assign = match(outputs, targets)
     mark("targets")
     losses = isbnet_loss(outputs, prepared, targets, crit_cfg, assign=assign)
     return losses["loss"], (losses, dict(outputs=outputs, targets=targets, assign=assign))
 
 
-def make_train_step(model, crit_cfg: CriterionConfig,
-                    on_stage: Optional[Callable[[str], None]] = None) -> Callable:
-    """Single-device step: ``(state, prepared, lr) -> (state, losses)``, the
-    losses detached. ``on_stage(name)``, if given, is called as each stage
-    ends: ``forward``, ``targets`` (targets and matching), ``backward`` and
-    ``optimizer``."""
+def _spformer_loss_fn(model, prepared, crit_cfg, assign=None, mark=_no_mark):
+    """SPFormer's ``_loss_fn``: ``assign`` is an optional [L+1, B, I]
+    assignment, one per decoder layer (``spformer_match_layers``)."""
+    from ..losses.spformer_criterion import spformer_match_layers, spformer_loss
+
+    outputs = model(prepared.batch)
+    mark("forward")
+    # point-resolution label pooling, as the model pools its features
+    targets = _targets(prepared, outputs, crit_cfg.inst_cap,
+                       vox_weights=prepared.batch.vox_npoints, pool=model.cfg.pool)
+    if assign is None:
+        assign = spformer_match_layers(outputs, targets, crit_cfg)
+    mark("targets")
+    losses = spformer_loss(outputs, targets, crit_cfg, assign=assign)
+    return losses["loss"], (losses, dict(outputs=outputs, targets=targets, assign=assign))
+
+
+def _make_step(loss_fn, model, crit_cfg, on_stage) -> Callable:
     mark = on_stage or _no_mark
 
     def step(state, prepared, lr):
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, (losses, _) = _loss_fn(model, prepared, crit_cfg, mark=mark)
+        loss, (losses, _) = loss_fn(model, prepared, crit_cfg, mark=mark)
         loss.backward()
         mark("backward")
         state = state.apply_gradients(lr=lr)
@@ -58,3 +95,20 @@ def make_train_step(model, crit_cfg: CriterionConfig,
         return state, {k: v.detach() for k, v in losses.items()}
 
     return step
+
+
+def make_train_step(model, crit_cfg: CriterionConfig,
+                    on_stage: Optional[Callable[[str], None]] = None) -> Callable:
+    """Single-device ISBNet step: ``(state, prepared, lr) -> (state,
+    losses)``, the losses detached. ``on_stage(name)``, if given, is called
+    as each stage ends: ``forward``, ``targets`` (targets and matching),
+    ``backward`` and ``optimizer``."""
+    return _make_step(_loss_fn, model, crit_cfg, on_stage)
+
+
+def make_spformer_train_step(model, crit_cfg,
+                             on_stage: Optional[Callable[[str], None]] = None) -> Callable:
+    """Single-device SPFormer step, as ``make_train_step``; frozen modules
+    (``model.cfg.fixed_modules``) run in eval mode with their output
+    detached, and ``train/state.py`` leaves them out of the optimizer."""
+    return _make_step(_spformer_loss_fn, model, crit_cfg, on_stage)

@@ -77,7 +77,7 @@ def test_validate_matches_jax():
                                    **kw)
     jds = jax_dataset.SyntheticDataset(n_scenes=2, training=False,
                                        voxel_cfg=jax_dataset.VoxelCfg(**vc), **kw)
-    mk = port_train._isbnet_config(cfg)
+    mk = port_train._model_kwargs(cfg)
     jmodel = JaxISBNet(JaxConfig(**mk))
     shrink = port_train.read_plan_shrink(cfg.data)
 

@@ -13,7 +13,7 @@ import torch
 
 import gapro_tpu_torch
 from gapro_tpu_torch.labeler import generate_scene_labels
-from gapro_tpu_torch.models import isbnet, prepare
+from gapro_tpu_torch.models import isbnet, prepare, spformer
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -32,7 +32,9 @@ def test_port_imports_no_jax():
             "gapro_tpu_torch.gp.variational", "gapro_tpu_torch.gp.fallback",
             "gapro_tpu_torch.gp.ensemble", "gapro_tpu_torch.labeler.boxes",
             "gapro_tpu_torch.labeler.pipeline", "gapro_tpu_torch.eval.pseudo",
-            "gapro_tpu_torch.tools.gen_ps"} <= set(mods)
+            "gapro_tpu_torch.tools.gen_ps", "gapro_tpu_torch.models.spformer",
+            "gapro_tpu_torch.losses.spformer_criterion",
+            "gapro_tpu_torch.eval.point_wise_eval"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -49,6 +51,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         isbnet.ISBNet(isbnet.ISBNetConfig(channels=8, num_blocks=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spformer.SPFormer(spformer.SPFormerConfig(media=8, blocks=2, num_layer=1, num_query=4,
+                                                  d_model=16, nhead=2, hidden_dim=16))
     pb = prepare.points_to_batch_np(
         [dict(xyz=[[0.0, 0.0, 0.0]], rgb=[[0.0, 0.0, 0.0]], spp=[0])], n_cap=128)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,8 +1,10 @@
 """The port's train and test CLIs (``gapro_tpu_torch/tools``) on the CPU,
-on the tiny synthetic configuration: what the train CLI writes, exact
+on the tiny synthetic configurations: what the train CLI writes, exact
 resumption, the checkpoints' retention and partial loads, the test CLI's
-AP line, and the full-width configuration ``chip_smoke.py`` builds in code
-(the card's machine has no PyYAML) against its YAML."""
+AP line, ISBNet's two stages (``--only_backbone``, then ``--pretrain``),
+SPFormer's train and test CLIs with box AP, the options still unported,
+and the full-width configurations ``chip_smoke.py`` builds in code (the
+card's machine has no PyYAML) against their YAML."""
 
 import json
 import os
@@ -23,6 +25,7 @@ from gapro_tpu_torch.train.state import create_train_state
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY = osp.join(ROOT, "configs", "tiny_synthetic.yaml")
+TINY_SPF = osp.join(ROOT, "configs", "tiny_spformer_synthetic.yaml")
 SMALL = dict(n_objects=3, points_per_object=300, n_floor=400, n_wall=300)
 
 
@@ -133,17 +136,117 @@ def test_retention_and_partial_load(tmp_path):
         assert torch.equal(v, before[k] if k in (wrong, missing) else sd[k]), k
 
 
-def test_unported_options_raise():
+def _s3dis(cfg):
+    cfg.data["type"] = "s3dis"
+    port_train.build_dataset(cfg, training=True)
+
+
+def _x4_split(cfg):
+    from gapro_tpu_torch.models.inference import TestConfig
+
+    TestConfig.from_dict(dict(cfg.test, x4_split=True))
+
+
+@pytest.mark.parametrize("option", ["dp", "s3dis", "x4_split"])
+def test_unported_options_raise(option):
+    """What is still unported raises: data parallelism (``--dp``), the
+    S3DIS dataset and the s3dis test option ``x4_split``."""
     cfg = _tiny_cfg(1)
-    cfg.model["semantic_only"] = True
+    run = {"dp": lambda: port_train.main([TINY, "--dp", "2", "--device", "cpu"]),
+           "s3dis": lambda: _s3dis(cfg), "x4_split": lambda: _x4_split(cfg)}[option]
     with pytest.raises(NotImplementedError):
-        port_train.build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError):
-        port_train.main([TINY, "--dp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        port_train.main([TINY, "--only_backbone", "--device", "cpu"])
+        run()
 
 
-def test_in_code_full_width_config_equals_yaml():
-    assert AttrDict.wrap(chip_smoke.ISBNET_SCANNETV2) == load_config(
-        osp.join(ROOT, "configs", "isbnet_scannetv2.yaml"))
+@pytest.fixture(scope="module")
+def backbone_run(tmp_path_factory):
+    """``--only_backbone`` on the tiny configuration with a
+    ``criterion.semantic_only`` key (False): the CLI sets it, as the JAX CLI
+    does, and trains the backbone stage for two epochs."""
+    tmp = tmp_path_factory.mktemp("backbone")
+    text = open(TINY).read().replace("criterion:\n", "criterion:\n  semantic_only: False\n", 1)
+    assert "semantic_only: False\n  instance_classes" in text
+    config = str(tmp / "tiny_backbone.yaml")
+    with open(config, "w") as f:
+        f.write(text)
+    work = str(tmp / "run")
+    _cli("train", config, "--only_backbone", "--synthetic", "2", "--epochs", "2", "--device",
+         "cpu", "--work_dir", work)
+    return work
+
+
+def test_only_backbone_trains_and_validates_by_miou(backbone_run):
+    lines = [json.loads(x) for x in open(osp.join(backbone_run, "metrics.jsonl"))]
+    assert [r["epoch"] for r in lines] == [1, 2]
+    for rec in lines:
+        assert set(rec) >= {"pw_sem_loss", "pw_corners_loss", "pw_giou_loss", "pw_conf_loss",
+                            "loss", "val_miou", "val_acc", "val_offset_mae"}, rec
+        assert "dice_loss" not in rec and "val_ap" not in rec
+        assert all(np.isfinite(v) for v in rec.values())
+    best = max(lines, key=lambda r: r["val_miou"])
+    ck = checkpoint.load_checkpoint(osp.join(backbone_run, "best"))
+    assert ck["epoch"] == best["epoch"]
+    assert {k.split(".")[0] for k in ck["model"]} == {
+        "backbone", "semantic_linear", "offset_vertices_linear", "box_conf_linear"}
+
+
+def test_pretrain_loads_exactly_the_shared_keys(backbone_run, tmp_path):
+    """The full stage started from the backbone checkpoint: every key the
+    two models share takes the checkpoint's value (BatchNorm statistics
+    included), every other key keeps its initial value; and the train CLI
+    loads it through ``--pretrain``."""
+    ck = checkpoint.load_checkpoint(osp.join(backbone_run, "best"))["model"]
+    model, _ = port_train.build_model(_tiny_cfg(1), "cpu", seed=3)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    checkpoint.load_model_weights(osp.join(backbone_run, "best"), model)
+    after = model.state_dict()
+    shared = set(ck) & set(after)
+    assert shared == set(ck) and len(set(after) - shared) > 0
+    for k, v in after.items():
+        assert torch.equal(v, ck[k] if k in shared else before[k]), k
+    work = str(tmp_path / "full")
+    _cli("train", TINY, "--synthetic", "2", "--epochs", "1", "--device", "cpu",
+         "--pretrain", osp.join(backbone_run, "best"), "--work_dir", work)
+    log = open(osp.join(work, "train.log")).read()
+    assert "loaded pretrain" in log
+    assert f"kept {len(set(after) - shared)} target entries" in log
+
+
+def test_only_backbone_without_the_criterion_key_raises(tmp_path):
+    """``configs/tiny_synthetic.yaml`` has no ``criterion.semantic_only``:
+    ``--only_backbone`` then leaves the criterion's flag False, as the JAX
+    CLI does, and the first step raises where the JAX package fails (it
+    looks for ``sp_dense_idx`` in a semantic_only model's outputs)."""
+    with pytest.raises(ValueError, match="criterion.semantic_only"):
+        port_train.main([TINY, "--only_backbone", "--synthetic", "2", "--epochs", "1",
+                         "--device", "cpu", "--work_dir", str(tmp_path / "run")])
+
+
+def test_spformer_train_and_test_clis(tmp_path):
+    """SPFormer's tiny configuration trains two epochs (the poly schedule,
+    validation by AP), and the test CLI prints the AP and the box AP lines."""
+    work = str(tmp_path / "spf")
+    _cli("train", TINY_SPF, "--synthetic", "2", "--epochs", "2", "--device", "cpu",
+         "--work_dir", work)
+    lines = [json.loads(x) for x in open(osp.join(work, "metrics.jsonl"))]
+    assert [r["epoch"] for r in lines] == [1, 2]
+    for rec in lines:
+        for k in ("cls_loss", "bce_loss", "dice_loss", "score_loss", "levelset_loss", "kl_loss",
+                  "loss", "ovf_spp_slots", "val_ap"):
+            assert k in rec and np.isfinite(rec[k]), (k, rec)
+    cfg = load_config(TINY_SPF)
+    assert lines[1]["lr"] == pytest.approx(
+        cfg.train.lr * 0.5 ** 0.9)  # poly: base * (1 - 1/2)^0.9, base batch 2
+    r = _cli("test", TINY_SPF, osp.join(work, "best"), "--synthetic", "2", "--device", "cpu")
+    ap, box = (json.loads(x) for x in r.stdout.strip().splitlines()[-2:])
+    assert {"all_ap", "all_ap_50%", "all_ap_25%"} <= set(ap)
+    assert {"box_all_ap", "box_all_ap_50%", "box_all_ap_25%"} <= set(box)
+
+
+@pytest.mark.parametrize("name,yaml", [
+    ("ISBNET_SCANNETV2", "isbnet_scannetv2.yaml"),
+    ("ISBNET_BACKBONE_SCANNETV2", "isbnet_backbone_scannetv2.yaml"),
+    ("SPFORMER_SCANNETV2", "spformer_scannetv2.yaml")])
+def test_in_code_full_width_config_equals_yaml(name, yaml):
+    assert AttrDict.wrap(getattr(chip_smoke, name)) == load_config(
+        osp.join(ROOT, "configs", yaml))

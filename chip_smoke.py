@@ -8,7 +8,8 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
 1. kernel phase: runs each kernel against its plain PyTorch version on the
    card at the shapes the full-width ISBNet gives it (K1, the submanifold
    conv, at every level capacity and channel pair, and both against the
-   same conv in fp64; K4, FPS, at N = 262144 ->
+   same conv in fp64 (rms, and the mean error along the output's sign,
+   within K1_DRIFT_ULP); K4, FPS, at N = 262144 ->
    2048 and N = 2048 -> 192 / 128 / 64, and on one item of N = 1048576
    past what a cluster holds on chip, with its cluster shape and time a
    step; K5, the dynamic-conv mask head, at (B, Q, S) = (4, 256, 4096),
@@ -43,7 +44,9 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
 7. plain training comparison: one step's losses, gradients and BatchNorm
    statistics on scene 0, kernels against plain versions, with the kernel
    run's assignment injected, against a run on inputs one ulp apart; and
-   the backward kernels against theirs on a shared K1 forward;
+   the backward kernels against theirs on a shared K1 forward; then K1 and
+   dfeats against fp64 on that step's own activations and gradients (the
+   mean along the sign within K1_DRIFT_ULP at every launch);
 8. where the time goes: one request with its layer calls timed, and one
    request and (after phase 6) one training step under torch.profiler
    (device time by kernel, the card's busy share of the wall time);
@@ -85,7 +88,23 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
     the CPU (``labeler_gate``), gate (b) two card passes bit for bit, gate
     (c) finite mu and var; one pass of bench.py's "real" preset; one pass
     under torch.profiler, and one fit group's kernels an Adam step and its
-    device time against its wall time.
+    device time against its wall time;
+15. ISBNet on S3DIS (configs/isbnet_s3dis.yaml: 13 classes, the ball
+    query's radius 1.5 times ScanNet's) on synthetic rooms written in the
+    layout ``S3DISDataset`` reads: the x4_split request (a room of 1e6
+    points served as 4 interleaved pieces, the heads on the merged room,
+    the ceiling and floor from the semantics) on 3 rooms after a cold one,
+    counts zeroed just before and read just after; room 0 against the plain
+    versions; K4 at the merged room's stage 1, past its on-chip capacity,
+    against its plain version index for index; K5 at the request's rounds;
+    K1 against fp64 at the merged plan's shapes; the grid ball query at that
+    radius; the trainer at batch 4 on 16 rooms (one of 1.6e6 points, so
+    the 300000-point crop runs after the 25% subsample), validation on the 2
+    Area_5 rooms, one checkpoint; one batch-4 step against the plain
+    versions with no admission, and K1 and dfeats against fp64 on its own
+    inputs; dfeats and dW against their plain versions (and dW against
+    fp64) at its plan's shapes, and the conv kernels timed there; the test
+    CLI with x4_split on the Area_5 rooms (AP, mCov, mWCov, mPrec, mRec).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -133,6 +152,16 @@ PATH_RTOL = 1e-3
 # passes the first within 1e-4 and still moves the training step's
 # gradients far past the noise run's (PERF.md §6).
 K1_RTOL = 1e-4
+# K1's mean error against fp64 along the output's sign, in fp32 ulps of the
+# output's largest entry, at most this in absolute value at every shape: a
+# bias the rms gate lets through reaches every conv of every path. K1
+# summed 12 wgmmas in the tensor cores' accumulator, which truncates, and
+# drifted by -0.13 to -0.25; with per-k-step sums it read -0.03 to -0.05,
+# as dW does; each k-step's truncation is now given back on average
+# (csrc/subm_conv.cu: untruncate; PERF.md §6). Held on random inputs at
+# every K1 shape and on the activations and gradients of real training
+# steps (k1_step_drift).
+K1_DRIFT_ULP = 0.06
 CONF_SHIFT = 1.5
 MASK_FILL = -1e4  # mask logit of an invalid superpoint (models/dyco.py)
 TRAIN_LR = 1e-3
@@ -515,6 +544,29 @@ def compare_outputs(got: dict, want: dict, rtol: float, what: str) -> float:
     return worst
 
 
+def instance_diff(a, b, out_a, out_b) -> str:
+    """How two instance lists of one request differ, record by record (label,
+    points whose mask differs, confidence), beside the discrete decisions
+    the float outputs' rounding can flip: voxels whose semantic argmax
+    differs and mask logits that change sign."""
+    from gapro_tpu_torch.utils.rle import rle_decode
+
+    if same_instances(a, b):
+        return f"{len(b)} identical instances"
+    diffs = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        pts = int((rle_decode(x["pred_mask"]) != rle_decode(y["pred_mask"])).sum())
+        if pts or x["label_id"] != y["label_id"] or not math.isclose(
+                x["conf"], y["conf"], rel_tol=PATH_RTOL, abs_tol=PATH_RTOL):
+            diffs.append(f"#{i} label {x['label_id']}/{y['label_id']}, {pts} points, conf "
+                         f"{x['conf']:.6g}/{y['conf']:.6g}")
+    argmax = int((out_a["semantic_scores"].argmax(1) != out_b["semantic_scores"].argmax(1)).sum())
+    signs = int(((out_a["mask_logits"] >= 0) != (out_b["mask_logits"] >= 0)).sum())
+    return (f"instance lists of {len(a)} and {len(b)} records differ in {len(diffs)}: "
+            + "; ".join(diffs[:6]) + f" (semantic argmax differs at {argmax} voxels, "
+            f"{signs} mask logits change sign)")
+
+
 def same_instances(a, b) -> bool:
     return len(a) == len(b) and all(
         x["label_id"] == y["label_id"] and np.array_equal(x["pred_mask"]["counts"],
@@ -647,7 +699,7 @@ def profile_request(fn, what: str, top: int = 12, attempts: int = 3) -> None:
 def conv_acc() -> dict:
     """Per-step sums of a conv kernel over its launches at a U-Net's shapes."""
     return dict(ms=0.0, plain_ms=0.0, bound=0.0, fp32=0.0, x3=0.0, bytes_ms=0.0, ops_ms=0.0,
-                flops=0.0, err=0.0, fp64=0.0)
+                flops=0.0, err=0.0, fp64=0.0, drift=0.0)
 
 
 def add_conv(acc: dict, n: int, ms: float, pms: float, nbytes: float, flops: float,
@@ -731,17 +783,17 @@ def fp64_drift(got, plain, ref, valid=None, name: str = "K1") -> tuple:
     in fp32 ulps of the output's largest entry: the root mean square, and
     the mean of the error along the sign of the output (a drift towards
     zero is negative). Returns (the kernel's rms, the plain version's rms,
-    a summary)."""
+    a summary, the kernel's mean along the sign)."""
     pick = (lambda x: x[valid]) if valid is not None else (lambda x: x.reshape(-1))
     ref = pick(ref)
     ulp = float(ref.abs().max()) * 2.0 ** -23
-    rms, out = [], []
+    rms, along, out = [], [], []
     for label, x in ((name, got), ("plain", plain)):
         e = pick(x).double() - ref
         rms.append(float(e.square().mean().sqrt()) / ulp)
-        along = float((e * ref.sign()).mean()) / ulp
-        out.append(f"{label} rms {rms[-1]:.3g}, along the sign {along:+.3g}")
-    return rms[0], rms[1], "; ".join(out) + " ulp"
+        along.append(float((e * ref.sign()).mean()) / ulp)
+        out.append(f"{label} rms {rms[-1]:.3g}, along the sign {along[-1]:+.3g}")
+    return rms[0], rms[1], "; ".join(out) + " ulp", along[0]
 
 
 def k1_phase(cfg, caps, levels, dev, row_orders: bool = True) -> dict:
@@ -776,10 +828,14 @@ def k1_phase(cfg, caps, levels, dev, row_orders: bool = True) -> dict:
         if not bool((got[~valid] == 0).all()):
             fail(f"K1 at V={v}: invalid rows are not exactly 0")
         ref = conv.subm_conv(feats.double(), nbr, w.double(), valid)
-        rms, plain_rms, drift = fp64_drift(got, want, ref, valid)
+        rms, plain_rms, drift, along = fp64_drift(got, want, ref, valid)
         if rms > NOISE_FACTOR * plain_rms:
             fail(f"K1 at V={v} Cin={cin} Cout={cout} is further from fp64 than fp32 is: {drift}")
+        if abs(along) > K1_DRIFT_ULP:
+            fail(f"K1 at V={v} Cin={cin} Cout={cout} drifts along the output's sign by more "
+                 f"than {K1_DRIFT_ULP} ulp against fp64: {drift}")
         k1["fp64"] = max(k1["fp64"], rms / plain_rms)
+        k1["drift"] = max(k1["drift"], abs(along))
         spatial = spatial_tables(nbr)
         if not torch.equal(conv.subm_conv_cuda(feats, nbr, w, valid, tables=spatial)[~valid],
                            got[~valid]):
@@ -801,8 +857,63 @@ def k1_phase(cfg, caps, levels, dev, row_orders: bool = True) -> dict:
                 lambda: conv.subm_conv_cuda(feats, nbr, w, valid, tables=spatial))
             line += f"; row order: sorted {ts:.4f} ms, spatial {tp:.4f} ms"
         print(line, flush=True)
-    print(conv_step_line("K1", sum(k1_shape_counts(cfg, caps).values()), k1), flush=True)
+    print(conv_step_line("K1", sum(k1_shape_counts(cfg, caps).values()), k1)
+          + f"; against fp64 the mean along the sign at most {k1['drift']:.3g} ulp in "
+            f"absolute value (gate {K1_DRIFT_ULP}), rms at most {k1['fp64']:.3g} times the "
+            f"plain version's", flush=True)
     return k1
+
+
+def k1_step_drift(model, prepared, crit, what: str) -> float:
+    """K1 against fp64 on what a real training step feeds it: every K1
+    launch of one step's forward (the activations after BatchNorm and ReLU,
+    many of them exact zeros, and the model's weights) and every dfeats
+    launch of its backward (the step's gradients), each beside the plain
+    fp32 version and the fp64 conv on the same inputs. Fails when the mean
+    error along the output's sign passes K1_DRIFT_ULP at any launch, as
+    ``k1_phase`` does on random inputs. Returns the largest such mean in
+    absolute value."""
+    import torch
+
+    from gapro_tpu_torch.sparse import conv
+
+    rows = []
+    k1, dfeats = conv.subm_conv_cuda, conv.subm_conv_dfeats_cuda
+
+    def held(kernel, name):
+        def run(a, nbr, w, valid, tables):
+            got = kernel(a, nbr, w, valid, tables=tables)
+            with torch.no_grad():
+                ref = conv.subm_conv(a.double(), nbr, w.double(), valid)
+                if bool(ref[valid].abs().max() > 0):
+                    rms, plain_rms, drift, along = fp64_drift(
+                        got, conv.subm_conv(a, nbr, w, valid), ref, valid, name)
+                    rows.append((name, tuple(a.shape), float((a[valid] == 0).float().mean()),
+                                 rms / plain_rms, along, drift))
+            return got
+        run.launches = 0  # the kernel counts its launch here: a check's launch, not the path's
+        return run
+
+    conv.subm_conv_cuda, conv.subm_conv_dfeats_cuda = held(k1, "K1"), held(dfeats, "dfeats")
+    try:
+        one_step_grads(model, prepared, crit)
+    finally:
+        conv.subm_conv_cuda, conv.subm_conv_dfeats_cuda = k1, dfeats
+    torch.cuda.synchronize()
+    for name in ("K1", "dfeats"):
+        mine = [r for r in rows if r[0] == name]
+        worst = max(mine, key=lambda r: abs(r[4]))
+        print(f"{what}, {name} on the step's own inputs against fp64 ({len(mine)} launches, "
+              f"{min(r[2] for r in mine):.1%} to {max(r[2] for r in mine):.1%} of the input "
+              f"entries exactly 0): the mean along the sign from {min(r[4] for r in mine):+.3g} "
+              f"to {max(r[4] for r in mine):+.3g} ulp (gate {K1_DRIFT_ULP}), rms "
+              f"{min(r[3] for r in mine):.3g} to {max(r[3] for r in mine):.3g} times the plain "
+              f"version's; the furthest at {worst[1]}: {worst[5]}", flush=True)
+    for name, shape, _, _, along, drift in rows:
+        if abs(along) > K1_DRIFT_ULP:
+            fail(f"{what}: {name} at {shape} on the step's own inputs drifts along the output's "
+                 f"sign by more than {K1_DRIFT_ULP} ulp against fp64: {drift}")
+    return max(abs(r[4]) for r in rows)
 
 
 def backward_kernel_phase(cfg, caps, levels, dev, row_orders: bool = True) -> tuple:
@@ -859,7 +970,7 @@ def backward_kernel_phase(cfg, caps, levels, dev, row_orders: bool = True) -> tu
             fail(f"dfeats at V={v}: invalid rows are not exactly 0")
         if not torch.equal(got_dw, again):
             fail(f"dW at V={v} Cin={cin} Cout={cout} differs between two launches")
-        rms, plain_rms, drift = fp64_drift(
+        rms, plain_rms, drift, _ = fp64_drift(
             got_dw, conv.subm_conv_dw(feats, nbr, dout),
             conv.subm_conv_dw(feats.double(), nbr, dout.double()), name="dW")
         if rms > NOISE_FACTOR * plain_rms:
@@ -1767,11 +1878,11 @@ def k4_phase(prep0, cfg, dev) -> dict:
     return k4
 
 
-def ball_query_phase(model, scene, dev) -> None:
-    """Scene 0's stage-1 ball query (N = 262144: the grid form) on the card
-    against the same call on the CPU, indices and counts equal; then the
-    grid and the tiled form timed at that call, and the queries whose
-    neighbours the 512-candidate cap changes."""
+def ball_query_phase(request, what: str) -> None:
+    """The stage-1 ball query of one ``request()`` (the grid form at its N)
+    on the card against the same call on the CPU, indices and counts equal;
+    then the grid and the tiled form timed at that call, and the queries
+    whose neighbours the 512-candidate cap changes."""
     import torch
 
     from gapro_tpu_torch.models import aggregator
@@ -1779,7 +1890,7 @@ def ball_query_phase(model, scene, dev) -> None:
 
     calls = []
     with capture(aggregator, "ball_query_masked", calls):
-        serve(model, *scene, dev)
+        request()
     args = calls[0]
     q, p, qv, pv, radius, k = args
     if p.shape[1] < GRID_MIN_N:
@@ -1792,7 +1903,7 @@ def ball_query_phase(model, scene, dev) -> None:
     grid_ms = cuda_ms(lambda: ballquery.ball_query_grid(*args), 5)
     tiled_ms = cuda_ms(lambda: ballquery.ball_query_tiled(*args), 1)
     capped = int((got[0] != ballquery.ball_query_tiled(*args)[0]).any(-1).sum())
-    print(f"ball query, scene 0 stage 1 (Q={q.shape[1]}, N={p.shape[1]}, {int(pv.sum())} valid, "
+    print(f"ball query, {what} stage 1 (Q={q.shape[1]}, N={p.shape[1]}, {int(pv.sum())} valid, "
           f"radius {radius}, k={k}): the grid form on the card equals the CPU run (indices and "
           f"counts); grid {grid_ms:.3f} ms, tiled {tiled_ms:.3f} ms a call; the cap changes the "
           f"neighbours of {capped} of {int(qv.sum())} queries", flush=True)
@@ -1832,14 +1943,60 @@ def dyco_bytes(b: int, q: int, s: int, m: int = 32) -> int:
             + b * s)
 
 
+def k5_case(args, what: str) -> dict:
+    """K5 against the plain einsum version on one input (TF32 is off):
+    within K5_RTOL / K5_ATOL, invalid superpoints exactly MASK_FILL, two
+    launches bit-identical, and its rms error against the same function in
+    fp64 at most NOISE_FACTOR times the plain version's; timed with its
+    bounds (``tc_bounds``)."""
+    import torch
+
+    from gapro_tpu_torch.models import dyco
+
+    b, q, s = args[0].shape[0], args[0].shape[1], args[-1].shape[1]
+    got, again = dyco.dyco_cuda(*args), dyco.dyco_cuda(*args)
+    want = dyco.dyco_mlp_plain(*args)
+    ref = dyco.dyco_mlp_plain(*(a.double() for a in args[:-1]), args[-1])
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    bad = (got - want).abs() > K5_ATOL + K5_RTOL * want.abs()
+    if bool(bad.any()):
+        fail(f"K5 at B={b} Q={q} S={s} ({what}): {int(bad.sum())} logits outside rtol "
+             f"{K5_RTOL}, atol {K5_ATOL}; max |err| {err:.3g}")
+    if not bool((got.transpose(1, 2)[~args[-1]] == MASK_FILL).all()):
+        fail(f"K5 at B={b} Q={q} S={s} ({what}): invalid superpoints are not exactly {MASK_FILL}")
+    if not torch.equal(got, again):
+        fail(f"K5 at B={b} Q={q} S={s} ({what}) differs between two launches")
+    pairs = q * int(args[-1].sum())  # the function's pairs: valid superpoints only
+    drift, ratio = "no valid superpoint", 0.0
+    if pairs:
+        rms, plain_rms, drift, _ = fp64_drift(got, want, ref, args[-1][:, None, :].expand_as(want),
+                                              name="K5")
+        if rms > NOISE_FACTOR * plain_rms:
+            fail(f"K5 at B={b} Q={q} S={s} ({what}) is further from fp64 than fp32 is: {drift}")
+        ratio = rms / plain_rms
+    del ref
+    ms = cuda_ms(lambda: dyco.dyco_cuda(*args), 10)
+    dms = device_ms(lambda: dyco.dyco_cuda(*args), ("dyco_kernel", "image_kernel"))
+    pms = cuda_ms(lambda: dyco.dyco_mlp_plain(*args), 3)
+    ops, nbytes = dyco_ops(pairs), dyco_bytes(b, q, s)
+    bd = tc_bounds(nbytes, ops)
+    print(f"  B={b} Q={q:3d} S={s:4d} ({what}): wrapper {ms:.4f} ms (its two kernels "
+          f"{dms:.4f} ms of device time), plain {pms:.4f} ms, "
+          f"bound {bd['bound']:.4f} ms ({bd['by']}, TF32; fp32 {bd['fp32']:.4f}, 3xTF32 "
+          f"{bd['x3']:.4f}; {ops / 1e9:.3f} GFLOP over {pairs} valid pairs, "
+          f"{ops / ms / 1e9:.2f} TFLOP/s), max|err| {err:.3g}, bit-identical; against fp64: "
+          + drift, flush=True)
+    return dict(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bd["bound"], bound_by=bd["by"],
+                fp32=bd["fp32"], x3=bd["x3"], bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=ops / TF32_FLOPS * 1e3, err=err, fp64=ratio)
+
+
 def dyco_kernel_phase(dev) -> dict:
-    """K5 against the plain einsum version at each shape of ``DYCO_SHAPES``
-    (TF32 is off): within K5_RTOL / K5_ATOL, invalid superpoints exactly
-    MASK_FILL, two launches bit-identical, and its rms error against the
-    same function in fp64 at most NOISE_FACTOR times the plain version's;
-    timed with its bounds (``tc_bounds``). Then ``DycoFn``'s gradients on
-    the card against ``torch.autograd.grad`` of the plain version at the
-    training shape. Returns the timings by shape and the largest error."""
+    """K5 at each shape of ``DYCO_SHAPES`` (``k5_case``), then ``DycoFn``'s
+    gradients on the card against ``torch.autograd.grad`` of the plain
+    version at the training shape. Returns the timings by shape and the
+    largest error."""
     import torch
 
     from gapro_tpu_torch.models import dyco
@@ -1847,45 +2004,9 @@ def dyco_kernel_phase(dev) -> dict:
     print("K5 dyco_cuda vs plain (B, Q, S):", flush=True)
     res = dict(err=0.0, fp64=0.0, shapes={})
     for b, q, s, empty, what in DYCO_SHAPES:
-        args = dyco_inputs(dev, b, q, s, seed=q + s, empty=empty)
-        got, again = dyco.dyco_cuda(*args), dyco.dyco_cuda(*args)
-        want = dyco.dyco_mlp_plain(*args)
-        ref = dyco.dyco_mlp_plain(*(a.double() for a in args[:-1]), args[-1])
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        bad = (got - want).abs() > K5_ATOL + K5_RTOL * want.abs()
-        if bool(bad.any()):
-            fail(f"K5 at B={b} Q={q} S={s}: {int(bad.sum())} logits outside rtol {K5_RTOL}, atol "
-                 f"{K5_ATOL}; max |err| {err:.3g}")
-        if not bool((got.transpose(1, 2)[~args[-1]] == MASK_FILL).all()):
-            fail(f"K5 at B={b} Q={q} S={s}: invalid superpoints are not exactly {MASK_FILL}")
-        if not torch.equal(got, again):
-            fail(f"K5 at B={b} Q={q} S={s} differs between two launches")
-        pairs = q * int(args[-1].sum())  # the function's pairs: valid superpoints only
-        drift = "no valid superpoint"
-        if pairs:
-            rms, plain_rms, drift = fp64_drift(got, want, ref, args[-1][:, None, :].expand_as(want),
-                                               name="K5")
-            if rms > NOISE_FACTOR * plain_rms:
-                fail(f"K5 at B={b} Q={q} S={s} is further from fp64 than fp32 is: {drift}")
-            res["fp64"] = max(res["fp64"], rms / plain_rms)
-        del ref
-        ms = cuda_ms(lambda: dyco.dyco_cuda(*args), 10)
-        dms = device_ms(lambda: dyco.dyco_cuda(*args), ("dyco_kernel", "image_kernel"))
-        pms = cuda_ms(lambda: dyco.dyco_mlp_plain(*args), 3)
-        ops, nbytes = dyco_ops(pairs), dyco_bytes(b, q, s)
-        bd = tc_bounds(nbytes, ops)
-        res["err"] = max(res["err"], err)
-        res["shapes"][what] = dict(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bd["bound"],
-                                   bound_by=bd["by"], fp32=bd["fp32"], x3=bd["x3"],
-                                   bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                                   ops_ms=ops / TF32_FLOPS * 1e3)
-        print(f"  B={b} Q={q:3d} S={s:4d} ({what}): wrapper {ms:.4f} ms (its two kernels "
-              f"{dms:.4f} ms of device time), plain {pms:.4f} ms, "
-              f"bound {bd['bound']:.4f} ms ({bd['by']}, TF32; fp32 {bd['fp32']:.4f}, 3xTF32 "
-              f"{bd['x3']:.4f}; {ops / 1e9:.3f} GFLOP over {pairs} valid pairs, "
-              f"{ops / ms / 1e9:.2f} TFLOP/s), max|err| {err:.3g}, bit-identical; against fp64: "
-              + drift, flush=True)
+        r = k5_case(dyco_inputs(dev, b, q, s, seed=q + s, empty=empty), what)
+        res["err"], res["fp64"] = max(res["err"], r["err"]), max(res["fp64"], r["fp64"])
+        res["shapes"][what] = r
     b, q, s, _, _ = DYCO_SHAPES[0]
     args = dyco_inputs(dev, b, q, s, seed=7)
     xs = [a.clone().requires_grad_() for a in args[:-1]]
@@ -2492,9 +2613,371 @@ def spformer_phase(dev, scenes, train_ds, work_dir: str) -> dict:
     return res
 
 
+# configs/isbnet_s3dis.yaml as a dict (held equal to the YAML file by
+# tests/test_torch_trainer.py): ISBNet on S3DIS, C = 32, 7 levels, 13
+# classes, the ball query's radius 1.5 times ScanNet's, batch 4, crops of
+# 300000 points, rooms served in 4 interleaved pieces (x4_split) with the
+# ceiling and floor taken from the semantics (sem2ins_classes).
+ISBNET_S3DIS = {
+    "model": {"type": "isbnet", "channels": 32, "num_blocks": 7, "instance_classes": 13,
+              "semantic_classes": 13, "semantic_only": False, "with_coords": True,
+              "filter_bg_thresh": 0.1, "dec_dim": 128, "n_sample_pa1": 2048, "n_queries": 256,
+              "radius_scale": 1.5, "neighbor": 32, "mask_dim_out": 32, "spp_cap": 4096},
+    "criterion": {"instance_classes": 13, "voxel_scale": 50.0, "trainall": False,
+                  "inst_cap": 192},
+    "data": {"type": "s3dis", "data_root": "dataset/s3dis",
+             "label_type": "gaussian_process_kl_pseudo_labels",
+             "plan_shrink": [0.67, 0.3, 0.25, 0.25, 0.25, 0.25],
+             "prefix_train": "Area_1,Area_2,Area_3,Area_4,Area_6", "prefix_val": "Area_5",
+             "repeat": 1,
+             "voxel": {"scale": 50, "spatial_shape": [128, 512], "max_npoint": 300000,
+                       "min_npoint": 5000}},
+    "train": {"batch_size": 4, "epochs": 60, "step_epoch": 50, "lr": 0.001,
+              "weight_decay": 0.0001, "save_freq": 16, "eval_every": 16, "pretrain": None},
+    "test": {"x4_split": True, "sem2ins_classes": [0, 1], "logit_thresh": 0.0,
+             "score_thresh": 0.2, "npoint_thresh": 100, "type_nms": "matrix", "topk": 100,
+             "label_offset": 3},
+}
+# Synthetic S3DIS rooms (the card's machine has no dataset): a room of
+# about 1e6 points, the size of an S3DIS room, served whole; 16 training
+# rooms under the training areas' prefixes, one of 1.6e6 points so that the
+# 300000-point crop runs after the 25% subsample; 2 rooms of Area_5 for
+# validation and the test CLI; 3 more for the timed requests.
+S3DIS_ROOM_POINTS = 1_000_000
+S3DIS_BIG_ROOM_POINTS = 1_600_000
+S3DIS_TRAIN_AREAS = (1, 2, 3, 4, 6)
+S3DIS_TRAIN_ROOMS = 16
+S3DIS_REQUESTS = 3
+# The objects of a room beside its ceiling (class 0), floor (1) and four
+# walls (2): (class, count) for beam, column, window, door, chair, table,
+# bookcase, sofa, board and clutter; each its own instance.
+S3DIS_OBJECTS = ((3, 1), (4, 1), (5, 1), (6, 1), (7, 6), (8, 2), (9, 2), (10, 1), (11, 1),
+                 (12, 5))
+S3DIS_SPP_CELL = 0.5  # m: a superpoint is an instance's points in one such cell
+
+
+def box_surface(rng, lo, hi, n: int):
+    """``n`` points uniform on the surface of the box [lo, hi] (a face of no
+    area gets none)."""
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    ext = hi - lo
+    areas = np.repeat([ext[1] * ext[2], ext[0] * ext[2], ext[0] * ext[1]], 2)
+    face = rng.choice(6, n, p=areas / areas.sum())
+    p = lo + rng.random((n, 3)) * ext
+    axis = face // 2
+    p[np.arange(n), axis] = np.where(face % 2 == 1, hi[axis], lo[axis])
+    return p
+
+
+def s3dis_room(seed: int, n_points: int) -> dict:
+    """One synthetic S3DIS room as ``tools/prepare_s3dis.py`` writes it:
+    xyz (centred in x and y, the floor at z = 0), rgb in [-1, 1], the 13
+    classes as training ids and an instance id per object (ceiling, floor
+    and each wall included), and superpoint ids. Points are spread over the
+    objects' surfaces by area, with 3 mm of noise."""
+    rng = np.random.default_rng(seed)
+    w, d, h = rng.uniform(5.0, 9.0), rng.uniform(4.0, 7.0), rng.uniform(2.8, 3.4)
+    boxes = [(0, (0, 0, h), (w, d, h)), (1, (0, 0, 0), (w, d, 0)),
+             (2, (0, 0, 0), (w, 0, h)), (2, (0, d, 0), (w, d, h)),
+             (2, (0, 0, 0), (0, d, h)), (2, (w, 0, 0), (w, d, h))]
+    at = lambda size, lim: rng.uniform(0.1, lim - size - 0.1)
+    for cls, count in S3DIS_OBJECTS:
+        for _ in range(count):
+            if cls == 3:  # beam under the ceiling
+                y = at(0.3, d)
+                box = (0, y, h - 0.4), (w, y + 0.3, h)
+            elif cls == 4:  # column by a wall
+                x = at(0.4, w)
+                box = (x, 0, 0), (x + 0.4, 0.4, h)
+            elif cls in (5, 11):  # window, board: on a wall
+                x = at(1.6, w)
+                y0 = 0.0 if cls == 5 else d - 0.05
+                box = (x, y0, 0.9), (x + 1.6, y0 + 0.05, 2.1)
+            elif cls == 6:  # door
+                y = at(0.9, d)
+                box = (0, y, 0), (0.05, y + 0.9, 2.1)
+            else:  # furniture and clutter on the floor
+                sx, sy, sz = {7: (0.5, 0.5, 0.9), 8: (1.6, 0.8, 0.75), 9: (1.0, 0.35, 2.0),
+                              10: (2.0, 0.9, 0.8)}.get(cls, tuple(rng.uniform(0.2, 0.5, 3)))
+                x, y = at(sx, w), at(sy, d)
+                box = (x, y, 0), (x + sx, y + sy, sz)
+            boxes.append((cls, *box))
+    area = np.array([np.prod(np.sort(np.subtract(hi, lo))[1:]) + 1e-3 for _, lo, hi in boxes])
+    counts = rng.multinomial(n_points, area / area.sum())
+    xyz = np.concatenate([box_surface(rng, lo, hi, k) for (_, lo, hi), k in zip(boxes, counts)])
+    xyz += rng.normal(0.0, 0.003, xyz.shape)
+    inst = np.repeat(np.arange(len(boxes)), counts)
+    sem = np.array([cls for cls, _, _ in boxes])[inst]
+    rgb = np.clip(rng.uniform(-0.8, 0.8, (len(boxes), 3))[inst]
+                  + rng.normal(0.0, 0.05, xyz.shape), -1.0, 1.0)
+    cell = np.floor(xyz / S3DIS_SPP_CELL).astype(np.int64) + 1
+    _, spp = np.unique(((inst * 64 + cell[:, 0]) * 64 + cell[:, 1]) * 64 + cell[:, 2],
+                       return_inverse=True)
+    xyz[:, :2] -= xyz[:, :2].mean(0)
+    xyz[:, 2] -= xyz[:, 2].min()
+    return dict(xyz=xyz.astype(np.float32), rgb=rgb.astype(np.float32),
+                sem=sem.astype(np.int64), inst=inst.astype(np.int64), spp=spp.astype(np.int64))
+
+
+def write_s3dis(root: str, label_type: str) -> dict:
+    """Synthetic rooms in the layout ``S3DISDataset`` reads
+    (``preprocess/<Area>_<room>_inst_nostuff.pth``, ``superpoints/``): the
+    training rooms with seeded GP pseudo labels under ``label_type`` (the
+    5-tuple of sem, inst, prob per point and mu, var per superpoint, drawn as
+    ``gp_labels`` draws them), and the Area_5 rooms. Returns the points of
+    each room."""
+    import torch
+
+    for sub in ("preprocess", "superpoints", label_type):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    names = [(f"Area_{S3DIS_TRAIN_AREAS[i % len(S3DIS_TRAIN_AREAS)]}_office_{i + 1}",
+              S3DIS_BIG_ROOM_POINTS if i == 0 else S3DIS_ROOM_POINTS, True)
+             for i in range(S3DIS_TRAIN_ROOMS)]
+    names += [(f"Area_5_office_{i + 1}", S3DIS_ROOM_POINTS, False) for i in range(TEST_SCENES)]
+    sizes = {}
+    for seed, (name, n, train) in enumerate(names):
+        r = s3dis_room(seed, n)
+        torch.save((r["xyz"], r["rgb"], r["sem"], r["inst"]),
+                   os.path.join(root, "preprocess", name + "_inst_nostuff.pth"))
+        torch.save(r["spp"], os.path.join(root, "superpoints", name + ".pth"))
+        if train:
+            n_spp = int(r["spp"].max()) + 1
+            lab = gp_labels(seed, n_spp)
+            torch.save((r["sem"].astype(np.int32), r["inst"].astype(np.int32),
+                        gp_labels(seed, n)["prob"], lab["mu"], lab["var"]),
+                       os.path.join(root, label_type, name + ".pth"))
+        sizes[name] = n
+    return sizes
+
+
+def s3dis_config(data_root: str, epochs: int = 1):
+    """``ISBNET_S3DIS`` as the trainer and the test CLI read it, with the
+    rooms under ``data_root``, ``epochs`` epochs and every voxel kept
+    foreground (``filter_bg_thresh`` 0, as in the ScanNet phases: the
+    untrained semantics put no class of 13 above 0.1, which would leave the
+    aggregator, K4 and K5 no point)."""
+    from gapro_tpu_torch.train.config import AttrDict
+
+    cfg = AttrDict.wrap(ISBNET_S3DIS)
+    cfg.data["data_root"] = data_root
+    cfg.train["epochs"] = epochs
+    cfg.model["filter_bg_thresh"] = 0.0
+    return cfg
+
+
+def s3dis_serve(model, cfg, room: dict, dev):
+    """One S3DIS request as the test CLI serves it (``tools/test.py:serve_room``:
+    the room split into its 4 interleaved pieces -> prepare ->
+    ``forward_inference(x4_split=True)`` -> ``get_instances`` with the ceiling
+    and floor from the semantics, the masks put back into the room's point
+    order). Returns the prepared batch, the outputs, the instance records and
+    each stage's milliseconds."""
+    import torch
+
+    from gapro_tpu_torch.tools import test as port_test
+    from gapro_tpu_torch.tools import train as port_train
+
+    stamps = [time.perf_counter()]
+
+    def stage():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    prepared, out, inst = port_test.serve_room(model, cfg, room, port_train.make_prepare(cfg, dev),
+                                               cfg.data.voxel.scale, "s3dis_room", stage)
+    stage()
+    ms = {k: (stamps[i + 1] - stamps[i]) * 1e3
+          for i, k in enumerate(("split and prepare", "forward", "instances"))}
+    return prepared, out, inst, ms
+
+
+def s3dis_phase(dev, root: str) -> dict:
+    """ISBNet on S3DIS at full width (``ISBNET_S3DIS``) on synthetic rooms:
+    the x4_split request (a cold one, then ``S3DIS_REQUESTS`` timed, the
+    counts zeroed just before and read just after, peak memory), room 0
+    through the plain versions, K4 at the merged room's stage 1 (past its
+    on-chip capacity; and the points it would hold under the config's
+    filter_bg_thresh), K5 at the request's three rounds and K1 (against
+    fp64) at the merged plan's shapes; the grid
+    ball query at the 1.5 times larger radius; the trainer at batch 4 (one
+    cold and three timed steps, validation on the 2 Area_5 rooms, one
+    checkpoint), one batch-4 step held against the plain versions with no
+    admission, K1 and dfeats against fp64 on that step's own inputs, and
+    the conv's backward kernels against their plain versions and timed at
+    its shapes; the test CLI on the Area_5 rooms with x4_split, AP and
+    mCov, mWCov, mPrec and mRec."""
+    import torch
+
+    from gapro_tpu_torch.data.augment import transform_test
+    from gapro_tpu_torch.data.dataset import S3DISDataset, build_dataloader
+    from gapro_tpu_torch.losses.criterion import CriterionConfig
+    from gapro_tpu_torch.models import isbnet
+    from gapro_tpu_torch.ops import fps as fps_ops
+    from gapro_tpu_torch.tools import test as port_test
+    from gapro_tpu_torch.tools import train as port_train
+
+    t0 = time.perf_counter()
+    cfg = s3dis_config(root)
+    sizes = write_s3dis(root, cfg.data.label_type)
+    scale = cfg.data.voxel.scale
+    raw = [s3dis_room(1000 + i, S3DIS_ROOM_POINTS) for i in range(S3DIS_REQUESTS)]
+    rooms = [transform_test(dict(xyz=r["xyz"], rgb=r["rgb"], spp=r["spp"]), scale) for r in raw]
+    labels0 = raw[0]["sem"]
+    del raw
+    print(f"S3DIS: {len(sizes)} rooms written ({sum(sizes.values())} points; the training "
+          f"rooms {S3DIS_ROOM_POINTS} points but one of {S3DIS_BIG_ROOM_POINTS}), "
+          f"{S3DIS_REQUESTS} request rooms of {S3DIS_ROOM_POINTS} points, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    mcfg = port_train.model_config(cfg)
+    model = isbnet.ISBNet(mcfg, seed=0, device=dev)
+    with torch.no_grad():
+        model.inst_conf_head.dense2.bias += CONF_SHIFT
+
+    # the x4_split request: one cold, then timed
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stages = s3dis_serve(model, cfg, rooms[0], dev)[3]
+    print(f"S3DIS cold request, room 0: {(time.perf_counter() - t1) * 1e3:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()) + " ms)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, results = [], []
+    for i, room in enumerate(rooms):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prepared, out, inst, stages = s3dis_serve(model, cfg, room, dev)
+        times.append((time.perf_counter() - t1) * 1e3)
+        results.append((prepared, out, inst))
+        b = prepared.batch
+        # each piece numbers its own superpoints; those numbered past the
+        # flat capacity are dropped before ovf_spp_slots counts anything
+        n_ids = sum(len(np.unique(p["spp"])) for p in S3DISDataset.split_pieces(room))
+        print(f"S3DIS request, room {i}: {len(room['xyz'])} points in 4 pieces, "
+              f"{int(b.valid.sum())} voxels (capacity {b.valid.shape[0]}), {n_ids} superpoint "
+              f"ids over the pieces against the flat capacity {b.n_spp} ("
+              f"{max(0, n_ids - b.n_spp)} dropped, which no ovf_* counter counts), "
+              f"{times[-1]:.1f} ms ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+              + f" ms), {len(inst)} instances (the first two the ceiling and floor), "
+              + ", ".join(f"{k}={out[k]}" for k in sorted(out) if k.startswith("ovf_")),
+              flush=True)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"S3DIS requests: launches over {S3DIS_REQUESTS} {launches}; median "
+          f"{statistics.median(times):.1f} ms (all: {', '.join(f'{t:.1f}' for t in times)}); "
+          f"peak device memory {peak:.2f} GiB", flush=True)
+    n_conv = sum(k1_shape_counts(mcfg, range(mcfg.unet_levels)).values())
+    if (launches["subm_conv"] != n_conv * S3DIS_REQUESTS or launches["fps"] != 4 * S3DIS_REQUESTS
+            or launches["dyco"] != 3 * S3DIS_REQUESTS):
+        fail(f"the S3DIS requests did not run through the kernels as expected: {launches}")
+    for prepared, out, inst in results:
+        q = sum(ROUNDS)
+        for key, shape in (("mask_logits", (1, q, mcfg.spp_cap)), ("cls_logits", (1, q, 14)),
+                           ("semantic_scores", (prepared.batch.valid.shape[0], 13))):
+            if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
+                fail(f"S3DIS {key}: shape {tuple(out[key].shape)} (want {shape}) or not finite")
+        if [(x["label_id"], x["conf"]) for x in inst[:2]] != [(1, 1.0), (2, 1.0)] or len(inst) < 3:
+            fail(f"S3DIS request: want the ceiling and floor first and NMS instances after, got "
+                 f"{[(x['label_id'], x['conf']) for x in inst[:4]]} of {len(inst)}")
+
+    # room 0 through the plain versions: every output within PATH_RTOL of
+    # scale and every discrete output equal; the instance lists beside it
+    with plain_kernels():
+        _, out_plain, inst_plain, stages = s3dis_serve(model, cfg, rooms[0], dev)
+    out0, inst0 = results[0][1], results[0][2]
+    err = compare_outputs(out0, out_plain, PATH_RTOL, "S3DIS room 0 kernels vs plain")
+    print(f"S3DIS plain versions, room 0: " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+          + f" ms; agrees with the kernels (discrete equal, floats within {err:.3g} of scale); "
+          + instance_diff(inst0, inst_plain, out0, out_plain), flush=True)
+    del results, out_plain
+
+    # K4 at the merged room's stage 1, K5 at the request's rounds
+    fps_calls, dyco_calls = [], []
+    with capture(fps_ops, "fps", fps_calls), capture(isbnet, "dyco_mlp", dyco_calls):
+        prepared = s3dis_serve(model, cfg, rooms[0], dev)[0]
+    xyz, valid, n_sample = fps_calls[0]
+    count = int(valid.sum())
+    on_chip = fps_ops.launch_shape(xyz.shape[1])["on_chip"]
+    print(f"K4 at the merged S3DIS room's stage 1: {count} valid points of N={xyz.shape[1]}, "
+          f"{on_chip} held on chip, {count - on_chip} spilled (read from L2, distances in "
+          f"global memory)", flush=True)
+    if count <= on_chip:
+        fail(f"K4 at the merged S3DIS room did not spill: {count} valid, {on_chip} on chip")
+    # The config's filter_bg_thresh (0.1) keeps a superpoint whose pooled
+    # semantics reach it in any class but the last (clutter): with semantics
+    # equal to the labels, every voxel that holds a point not of clutter.
+    perm = port_test.split_room(rooms[0], scale)[2]
+    kept = torch.from_numpy(labels0[perm] != ISBNET_S3DIS["model"]["semantic_classes"] - 1)
+    p2v = prepared.point2voxel[:len(perm)].cpu()[kept]
+    n_kept = int(torch.unique(p2v[p2v >= 0]).numel())
+    print(f"K4 at the merged S3DIS room under the config's filter_bg_thresh "
+          f"{ISBNET_S3DIS['model']['filter_bg_thresh']} with semantics equal to the labels: "
+          f"{n_kept} valid points, {n_kept - on_chip} spilled", flush=True)
+    k4 = k4_case(xyz, valid, n_sample, "S3DIS merged room, stage 1")
+    k4.update(valid=count, spilled=count - on_chip, config_spilled=n_kept - on_chip)
+    print("K5 at the S3DIS request's rounds:", flush=True)
+    k5 = [k5_case(args, f"S3DIS round {i + 1}") for i, args in enumerate(dyco_calls)]
+    plan = prepared.batch.plan
+    caps = [lp.subm_nbr.shape[0] for lp in plan.levels]
+    print(f"K1 at the merged S3DIS room's plan (4 pieces, levels {caps}):", flush=True)
+    k1 = k1_phase(mcfg, caps, plan.levels, dev, row_orders=False)
+    ball_query_phase(lambda: s3dis_serve(model, cfg, rooms[0], dev),
+                     f"S3DIS room 0 (radius_scale {mcfg.radius_scale})")
+    del model, prepared, plan, fps_calls, dyco_calls, xyz, valid
+    torch.cuda.empty_cache()
+
+    # the trainer at batch 4, one step against the plain versions
+    work_dir = os.path.join(root, "work")
+    train_ds = port_train.build_dataset(cfg, training=True)
+    val_ds = port_train.build_dataset(cfg, training=False)
+    trainer = trainer_phase(dev, work_dir, cfg, train_ds, dict(conv_need(mcfg), fps=1, dyco=1),
+                            label="S3DIS trainer", val_ds=val_ds)
+    loader = build_dataloader(train_ds, cfg.train.batch_size, training=True, seed=0, epoch=1,
+                              num_workers=DATA_WORKERS)
+    lb = next(loader)
+    loader.close()
+    prepared = port_train.make_prepare(cfg, dev)(lb.points, lb.batch_size)
+    print(f"S3DIS batch {lb.batch_size}: {int(prepared.batch.valid.sum())} voxels from "
+          f"{int(lb.points.valid.sum())} points (rooms {lb.scan_ids})", flush=True)
+    what = f"S3DIS step, batch {lb.batch_size}"
+    crit = CriterionConfig(**dict(cfg.criterion))
+    train_plain_compare(lambda: port_train.build_model(cfg, dev, seed=0)[0], prepared, crit, what)
+    step_drift = k1_step_drift(port_train.build_model(cfg, dev, seed=0)[0], prepared, crit, what)
+    levels = prepared.batch.plan.levels
+    print(f"conv backward at the {what}'s plan (levels "
+          f"{[lp.subm_nbr.shape[0] for lp in levels]}):", flush=True)
+    bwd_b4 = backward_kernel_phase(mcfg, [lp.subm_nbr.shape[0] for lp in levels], levels, dev,
+                                   row_orders=False)
+    conv_b4 = path_conv_times(mcfg, prepared.batch.plan, dev, what)
+    del levels, prepared
+    torch.cuda.empty_cache()
+
+    # the test CLI on the Area_5 rooms
+    zero_counts()
+    res = port_test.run_test(cfg, device=dev, dataset=val_ds, model=trainer["state"].model)
+    cli_launches = read_counts()
+    n_inst = [len(p) for p in res["preds"]]
+    ap = {k: v for k, v in res["result"].items() if k in ("all_ap", "all_ap_50%", "all_ap_25%")}
+    print(f"S3DIS test CLI (x4_split), {len(n_inst)} rooms: per room "
+          + ", ".join(f"{t * 1e3:.1f}" for t in res["seconds"])
+          + f" ms; instances {n_inst}; launches {cli_launches}; AP {json.dumps(ap)}; "
+          + json.dumps(res["s3dis_result"]), flush=True)
+    if (len(n_inst) != TEST_SCENES or not all(n_inst)
+            or any(cli_launches[k] != n * TEST_SCENES
+                   for k, n in (("fps", 4), ("dyco", 3), ("subm_conv", n_conv)))):
+        fail(f"the S3DIS test CLI did not run as expected: {cli_launches}, instances {n_inst}")
+    if not all(math.isfinite(v) for v in ap.values()):
+        fail(f"S3DIS test CLI: AP {ap}")
+    print(f"S3DIS phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(launches=launches, k1=k1, k4=k4, k5=k5, trainer=trainer, conv_b4=conv_b4,
+                bwd_b4=bwd_b4, step_drift=step_drift, cli_launches=cli_launches,
+                request_ms=times)
+
+
 def main() -> None:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2624,7 +3107,7 @@ def main() -> None:
     print(f"plain: scene 0 through the plain versions agrees (discrete equal, floats within "
           f"{err:.3g} of scale, {len(inst_plain)} identical instances)", flush=True)
     del results, out_plain
-    ball_query_phase(model, scenes[0], dev)
+    ball_query_phase(lambda: serve(model, *scenes[0], dev), "scene 0")
 
     # ---- 6. training path: full width, 3 steps, then one profiled ----------
     train = train_path(cfg, scenes, dev)
@@ -2632,11 +3115,13 @@ def main() -> None:
     profile_request(train["again"], "training step, scene 1")
 
     # ---- 7. plain training comparison: scene 0 -------------------------------
-    train_plain_compare(
-        lambda: isbnet.ISBNet(cfg, seed=0, device=dev),
-        prepare.prepare_voxel_batch(prepare.upload_point_batch(scenes[0][1], dev), N_CAP, 1,
-                                    cfg.num_blocks, cfg.spp_cap, FULL_SHRINK),
-        CriterionConfig(inst_cap=INST_CAP))
+    prep_s0 = prepare.prepare_voxel_batch(prepare.upload_point_batch(scenes[0][1], dev), N_CAP, 1,
+                                          cfg.num_blocks, cfg.spp_cap, FULL_SHRINK)
+    train_plain_compare(lambda: isbnet.ISBNet(cfg, seed=0, device=dev), prep_s0,
+                        CriterionConfig(inst_cap=INST_CAP))
+    step_drift = k1_step_drift(isbnet.ISBNet(cfg, seed=0, device=dev), prep_s0,
+                               CriterionConfig(inst_cap=INST_CAP), "training step, scene 0")
+    del prep_s0
 
     # ---- 8. where the time goes: layer times, then profiles -----------------
     stages = {}
@@ -2715,8 +3200,41 @@ def main() -> None:
 
     # ---- 14. the GP labeler: bench.py's sweep, its gates and profile --------
     labeler_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 15. ISBNet on S3DIS: x4_split requests, K4 past its on-chip
+    # capacity, the trainer, a step against the plain versions, the test CLI
+    s3_root = os.path.join(str(cuda_build.BUILD_DIR), "chip_smoke_s3dis")
+    shutil.rmtree(s3_root, ignore_errors=True)
+    s3 = s3dis_phase(dev, s3_root)
+    shutil.rmtree(s3_root)
 
     tl, t4 = train_launches, trainer["launches"]
+    s3t = s3["trainer"]["launches"]
+
+    def s3dis_conv(key, count, bwd=None):
+        """A conv kernel's keys at the S3DIS paths: its launches on the
+        requests, a trainer step and a test-CLI room; its ms and bound at the
+        batch-4 step's shapes; for K1 also at the merged room's shapes, its
+        plain ms, and its drift along the sign against fp64 there."""
+        out = dict(s3dis_request_launches=s3["launches"][count],
+                   s3dis_b4_launches=s3t[count], s3dis_test_cli_launches=s3["cli_launches"][count],
+                   s3dis_b4_ms=s3["conv_b4"][key][0], s3dis_b4_bound_ms=s3["conv_b4"][key][1])
+        if key == "K1":
+            out.update(s3dis_ms=s3["k1"]["ms"], s3dis_plain_ms=s3["k1"]["plain_ms"],
+                       s3dis_bound_ms=s3["k1"]["bound"], s3dis_fp64_rms_ratio=s3["k1"]["fp64"],
+                       s3dis_fp64_drift_ulp=s3["k1"]["drift"],
+                       fp64_drift_ulp=max(k1["drift"], spf["k1"]["drift"], s3["k1"]["drift"]),
+                       step_fp64_drift_ulp=max(step_drift, s3["step_drift"]))
+        if bwd:
+            out.update(s3dis_b4_bwd_launches=s3t[bwd], s3dis_b4_bwd_ms=s3["conv_b4"]["dfeats"][0],
+                       s3dis_b4_bwd_bound_ms=s3["conv_b4"]["dfeats"][1],
+                       s3dis_b4_bwd_max_abs_err=s3["bwd_b4"][0]["err"])
+        else:
+            out.update(s3dis_b4_max_abs_err=s3["bwd_b4"][1]["err"],
+                       s3dis_b4_fp64_rms_ratio=s3["bwd_b4"][1]["fp64"])
+        return out
+    s3k4, s3k5 = s3["k4"], s3["k5"]
 
     def new_paths(key, count, spf_key, bwd_count=None):
         """A conv kernel's keys on the new paths: the C=32 gate's, the
@@ -2763,11 +3281,13 @@ def main() -> None:
                   bwd_tflops=dfeats_acc["flops"] / dfeats_acc["ms"] / 1e9,
                   train_b4_launches=t4["subm_conv"], train_b4_bwd_launches=t4["subm_conv_dfeats"],
                   **new_paths("K1", "subm_conv", "k1", "subm_conv_dfeats"),
+                  **s3dis_conv("K1", "subm_conv", "subm_conv_dfeats"),
                   **conv_extra(k1, sass.get("subm_conv")))),
             ("subm_conv_dw", "gapro_tpu_torch/csrc/subm_conv_dw.cu",
              "gapro_tpu/sparse/window_conv.py:404, gapro_tpu/sparse/window_conv.py:366", dw_acc,
              tl["subm_conv_dw"], dict(train_b4_launches=t4["subm_conv_dw"],
                                       **new_paths("dW", "subm_conv_dw", "dw"),
+                                      **s3dis_conv("dW", "subm_conv_dw"),
                                       **conv_extra(dw_acc, sass.get("subm_conv_dw")))),
             ("fps", "gapro_tpu_torch/csrc/fps.cu", "gapro_tpu/ops/fps_pallas.py:42", k4,
              launches["fps"], dict(train_launches=tl["fps"], train_b4_launches=t4["fps"],
@@ -2780,6 +3300,15 @@ def main() -> None:
                                    past_on_chip_ms=k4["spill"]["ms"],
                                    past_on_chip_plain_ms=k4["spill"]["plain_ms"],
                                    past_on_chip_bound_ms=k4["spill"]["bound"],
+                                   s3dis_request_launches=s3["launches"]["fps"],
+                                   s3dis_b4_launches=s3t["fps"],
+                                   s3dis_merged_valid=s3k4["valid"],
+                                   s3dis_merged_spilled=s3k4["spilled"],
+                                   s3dis_merged_config_spilled=s3k4["config_spilled"],
+                                   s3dis_merged_ms=s3k4["ms"],
+                                   s3dis_merged_kernel_alone_ms=s3k4["kernel_ms"],
+                                   s3dis_merged_plain_ms=s3k4["plain_ms"],
+                                   s3dis_merged_bound_ms=s3k4["bound"],
                                    sass=sass.get("fps"))),
             ("dyco", "gapro_tpu_torch/csrc/dyco.cu", "gapro_tpu/models/dyco.py:100", k5_req,
              launches["dyco"],
@@ -2792,6 +3321,11 @@ def main() -> None:
                   bound_fp32_ms=k5_req["fp32"], bound_3xtf32_ms=k5_req["x3"],
                   train_b4_bound_fp32_ms=k5_train["fp32"],
                   train_b4_bound_3xtf32_ms=k5_train["x3"], fp64_rms_ratio=k5["fp64"],
+                  s3dis_request_launches=s3["launches"]["dyco"], s3dis_b4_launches=s3t["dyco"],
+                  s3dis_request_ms=sum(r["ms"] for r in s3k5),
+                  s3dis_request_device_ms=sum(r["device_ms"] for r in s3k5),
+                  s3dis_request_plain_ms=sum(r["plain_ms"] for r in s3k5),
+                  s3dis_request_bound_ms=sum(r["bound_ms"] for r in s3k5),
                   sass=sass.get("dyco")))):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, launches=n,
@@ -2799,6 +3333,7 @@ def main() -> None:
             bound_by="bytes" if k["bytes_ms"] >= k["ops_ms"] else "operations",
             library_ms=None, **extra))
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

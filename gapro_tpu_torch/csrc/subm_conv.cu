@@ -41,7 +41,7 @@
 // layout a wgmma descriptor names. Gathered rows rule out TMA's tiled
 // copies. The copy of chunk c + 1 is issued once both warpgroups are done
 // with chunk c; while it is in flight, the SM's other blocks (two at
-// BN = 64, three at BN = 32, as the registers allow) keep its tensor cores
+// BN = 64, four at BN = 32, as the registers allow) keep its tensor cores
 // busy. A second stage, filled while chunk c's products ran, was no faster
 // on the H100 (PERF.md), and keeping two chunks' A fragments in registers
 // to overlap them within the block was slower: more registers, fewer
@@ -59,13 +59,17 @@
 // padded tile (a stride of 36 floats makes the loads conflict-free) and
 // splits it in registers.
 //
-// The tensor cores do not round their fp32 sums to nearest: a sum kept in
-// the wgmma accumulator over the whole reduction (up to 2268 accumulating
-// wgmmas, at Cin = 224) drifted towards zero, further from the exact sum
-// than fp32 adds in any order, and enough to move a training step's
-// gradients (PERF.md §6). So each chunk's 12 wgmmas start from a zero
-// accumulator, and the chunk sums are added in fp32 on the CUDA cores
-// (round to nearest), in chunk order.
+// The tensor cores do not round their fp32 sums to nearest: they truncate
+// towards zero. A sum kept in the wgmma accumulator over the whole
+// reduction (up to 2268 accumulating wgmmas, at Cin = 224) drifted towards
+// zero, further from the exact sum than fp32 adds in any order, and enough
+// to move a training step's gradients (PERF.md §6); a 32-column chunk's 12
+// wgmmas summed there still drifted by -0.13 to -0.25 ulp along the
+// output's sign, and a k-step's three by -0.03 to -0.05. So each k-step's
+// three wgmmas start from a zero accumulator (a wgmma.wait_group a k-step,
+// as the dW kernel and K5 have), each k-step's sum gets back the half ulp
+// its truncation takes on average (untruncate), and the k-step sums are
+// added in fp32 on the CUDA cores (round to nearest), in k order.
 //
 // The deep levels have too few tiles to fill 132 SMs, so the chunks of a
 // tile may be split over gridDim.z blocks (gapro_subm_conv_splits picks
@@ -124,6 +128,17 @@ __device__ __forceinline__ uint32_t tf32(float x) {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32(x);
   lo = tf32(x - __uint_as_float(hi));
+}
+
+// x plus half an ulp of x away from zero, rounded to nearest even: x's
+// neighbour away from zero when x's last bit is 1, else x. A sum the tensor
+// cores truncated lies below the exact one by half an ulp on average; the
+// tie this add makes rounds up or down alike, so the result is right on
+// average. In the bits: b + (b & 1), the max keeping a NaN whose mantissa
+// is all ones (the canonical one) from carrying into the sign; 0 stays 0.
+__device__ __forceinline__ float untruncate(float x) {
+  const int b = __float_as_int(x);
+  return __int_as_float(max(static_cast<int>(static_cast<uint32_t>(b) + (b & 1)), b));
 }
 
 // Shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
@@ -281,14 +296,13 @@ subm_conv_kernel(const float* __restrict__ a, const int32_t* __restrict__ nbr,
     for (int e = tid; e < BN * 8 * 2; e += NT) cp_async16(b_s + 16 * e, src + 4 * e, true);
   };
 
-  float acc[BN / 2], sum[BN / 2];  // one chunk's sum (tensor cores), the running sum
+  float acc[BN / 2], sum[BN / 2];  // one k-step's sum (tensor cores), the running sum
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.f;
 
   const int ar = 64 * wg + 16 * ((tid >> 5) & 3) + g;  // this thread's A rows: ar, ar + 8
   const float* as = reinterpret_cast<const float*>(smem + L::B_BYTES);
   const uint32_t b_hi = b_s, b_lo = b_hi + BN * 128;
-  uint32_t ahi[4][4], alo[4][4];
   for (int c = next_live(c_begin); c < c_end; c = next_live(c + 1)) {
     load(c);
     cp_async_commit();
@@ -300,22 +314,20 @@ subm_conv_kernel(const float* __restrict__ a, const int32_t* __restrict__ nbr,
       for (int s = 0; s < 4; ++s) {
         const float x[4] = {as[ar * AS + 8 * s + t4], as[(ar + 8) * AS + 8 * s + t4],
                             as[ar * AS + 8 * s + t4 + 4], as[(ar + 8) * AS + 8 * s + t4 + 4]};
+        uint32_t ahi[4], alo[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(x[q], ahi[s][q], alo[s][q]);
-      }
-      wgmma_fence();
+        for (int q = 0; q < 4; ++q) split_tf32(x[q], ahi[q], alo[q]);
+        wgmma_fence();
+        wgmma(acc, alo, desc_sw128(b_hi + s * 32), 0);  // the k-step's sum starts at 0
+        wgmma(acc, ahi, desc_sw128(b_lo + s * 32), 1);
+        wgmma(acc, ahi, desc_sw128(b_hi + s * 32), 1);
+        wgmma_commit();
+        wgmma_wait<0>();  // the A registers (and after the last k-step the stage) are free
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        wgmma(acc, alo[s], desc_sw128(b_hi + s * 32), s > 0);  // the chunk's sum starts at 0
-        wgmma(acc, ahi[s], desc_sw128(b_lo + s * 32), 1);
-        wgmma(acc, ahi[s], desc_sw128(b_hi + s * 32), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();  // the A registers and the stage are free again
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        asm volatile("" : "+f"(acc[i])::"memory");  // read acc only after the wait
-        sum[i] = __fadd_rn(sum[i], acc[i]);
+        for (int i = 0; i < BN / 2; ++i) {
+          asm volatile("" : "+f"(acc[i])::"memory");  // read acc only after the wait
+          sum[i] = __fadd_rn(sum[i], untruncate(acc[i]));
+        }
       }
     }
     __syncthreads();  // ... in both warpgroups

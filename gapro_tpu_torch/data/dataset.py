@@ -3,6 +3,10 @@
 * ``ScanNetDataset``: ``<prefix>/<scan>_inst_nostuff.pth`` scenes, their
   superpoints, and pseudo labels from a ``label_type`` directory, with a
   repeat factor for training.
+* ``S3DISDataset``: ``preprocess/<prefix>*_inst_nostuff.pth`` rooms with
+  their 13 classes kept as training ids, a 25% subsample of each training
+  room, and ``split_pieces``, the test-time split of a room into 4
+  interleaved pieces.
 * ``SyntheticDataset``: fabricated rooms, for machines without the data.
 * ``build_dataloader``: shuffles, applies ``transform_train`` /
   ``transform_test`` and collates with ``models/prepare.py:
@@ -13,7 +17,7 @@ seeded from (seed, e, i), so the batches do not depend on the number of
 workers or on the order in which they finish. The workers are forked and
 do numpy and scipy work only (load and augment): the parent may already
 hold a CUDA context, which a forked child must never touch, so the collate
-and everything after it runs in the parent. ``S3DISDataset`` is not ported.
+and everything after it runs in the parent.
 """
 
 from __future__ import annotations
@@ -59,6 +63,11 @@ class ScanNetDataset:
     def __len__(self):
         return len(self.files) * (self.repeat if self.training else 1)
 
+    @staticmethod
+    def remap_semantic(sem):
+        """Raw semantic ids -> training ids."""
+        return remap_semantic_for_training(sem)
+
     def scan_id(self, index):
         f = self.files[index % len(self.files)]
         return osp.basename(f).replace(_SUFFIX, "")
@@ -81,10 +90,53 @@ class ScanNetDataset:
             mu = mu_spp[spp_c].astype(np.float32)
             var = var_spp[spp_c].astype(np.float32)
         else:
-            sem = remap_semantic_for_training(sem)
+            sem = self.remap_semantic(sem)
         return dict(xyz=xyz, rgb=rgb, semantic=sem.astype(np.int64),
                     instance=inst.astype(np.int64), spp=spp, prob=prob, mu=mu, var=var,
                     scan_id=scan)
+
+
+class S3DISDataset(ScanNetDataset):
+    """S3DIS rooms: ``prefix`` is a filename prefix inside ``preprocess/``
+    (comma-separated for several, e.g. the training areas); the semantic
+    ids are the 13 training classes as they stand, every class an instance
+    class. A training room keeps a 25% random subsample of its points, drawn
+    from ``np.random.default_rng(index)``."""
+
+    def __init__(self, *args, subsample_train=0.25, **kw):
+        super().__init__(*args, **kw)
+        self.subsample_train = subsample_train
+        if not self.files:
+            self.files = sorted(
+                f for p in str(self.prefix).split(",")
+                for f in glob(osp.join(self.data_root, "preprocess", p.strip() + "*" + _SUFFIX)))
+
+    @staticmethod
+    def remap_semantic(sem):
+        return np.asarray(sem).astype(np.int64)
+
+    def load(self, index) -> dict:
+        scene = super().load(index)
+        if self.training and self.subsample_train < 1.0:
+            keep = np.random.default_rng(index).random(len(scene["xyz"])) < self.subsample_train
+            for k in ("xyz", "rgb", "semantic", "instance", "spp", "prob", "mu", "var"):
+                scene[k] = scene[k][keep]
+        return scene
+
+    @staticmethod
+    def split_pieces(scene, n_pieces=4):
+        """The room's points sorted stably by x and dealt round-robin into
+        ``n_pieces`` interleaved pieces; each piece keeps its indices into
+        the room under ``piece_indices``."""
+        order = np.argsort(scene["xyz"][:, 0], kind="stable")
+        pieces = []
+        for p in range(n_pieces):
+            idx = order[p::n_pieces]
+            piece = {k: (v[idx] if isinstance(v, np.ndarray) and len(v) == len(order) else v)
+                     for k, v in scene.items()}
+            piece["piece_indices"] = idx
+            pieces.append(piece)
+        return pieces
 
 
 class SyntheticDataset:

@@ -59,7 +59,9 @@ def validate(model, model_type: str, dataset, cfg, log, prepare_fn,
     scene on the model's device. A ``semantic_only`` model: point-wise mIoU,
     accuracy and offset MAE, the metric mIoU; otherwise AP with single-round
     sampling of ``n_queries`` proposals for ISBNet, as the reference
-    validates during training, the metric AP. Returns (metric, detail)."""
+    validates during training, the metric AP; an S3DIS room is served
+    whole (no x4 split), with its ``sem2ins_classes`` instances. Returns
+    (metric, detail)."""
     from ..data.dataset import build_dataloader
     from .instance_eval import S3DIS_INSTANCE_CLASSES, SCANNET_INSTANCE_CLASSES, ScanNetEval
     from .point_wise_eval import PointWiseEval

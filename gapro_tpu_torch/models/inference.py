@@ -13,14 +13,17 @@ head, flat top-K (ties to the lower index, as ``lax.top_k``), mask = logit
 > 0, the score times the mean sigmoid inside the mask; no NMS. The point
 masks cross to the host bit-packed.
 
-The s3dis-only options of the JAX ``TestConfig`` (``sem2ins_classes``,
-``x4_split``) are not ported.
+S3DIS (``TestConfig.sem2ins_classes``): each of those classes (ceiling and
+floor) is one more instance of confidence 1, ahead of the NMS instances,
+taken from the devoxelized semantic argmax and aligned to the superpoints
+by a majority of at least half. ``TestConfig.x4_split`` is read by the
+test CLI, which serves an S3DIS room in 4 interleaved pieces.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -42,17 +45,20 @@ class TestConfig:
     topk: int = 100
     topk_insts: int = 300
     instance_classes: int = 18
-    label_offset: int = 1
+    label_offset: int = 1  # ScanNet: 1; S3DIS: 3
+    x4_split: bool = False
+    # S3DIS: the classes served as one instance each from the semantic
+    # argmax (ceiling 0 and floor 1)
+    sem2ins_classes: Tuple[int, ...] = ()
 
     @classmethod
     def from_dict(cls, d) -> "TestConfig":
         """A config's ``test`` section -> TestConfig; keys it does not know
-        are ignored, and the s3dis options raise until they are ported."""
-        d = dict(d or {})
-        if d.get("x4_split") or d.get("sem2ins_classes"):
-            raise NotImplementedError("the s3dis test options x4_split and sem2ins_classes "
-                                      "are not ported yet")
-        return cls(**{k: v for k, v in d.items() if k in cls.__dataclass_fields__})
+        are ignored."""
+        kw = {k: v for k, v in dict(d or {}).items() if k in cls.__dataclass_fields__}
+        if "sem2ins_classes" in kw:
+            kw["sem2ins_classes"] = tuple(kw["sem2ins_classes"] or ())
+        return cls(**kw)
 
 
 def select_proposals(cls_logits, conf_logits, mask_logits, box_preds, proposal_valid,
@@ -144,17 +150,43 @@ def get_instances(scan_id: str, outputs: dict, batch, point_spp: np.ndarray,
         point_spp_c[vp] = inv.astype(np.int32)
         n_pspp = len(uniq)
 
+    point_spp_c = torch.as_tensor(point_spp_c, device=dev)
+    instances = []
+    if cfg.sem2ins_classes:
+        masks = sem2ins_masks(outputs["semantic_scores"], point2voxel, point_spp_c, n_pspp,
+                              n_points, cfg.sem2ins_classes)
+        instances = [dict(scan_id=scan_id, label_id=c + 1, conf=1.0, pred_mask=rle)
+                     for c, rle in zip(cfg.sem2ins_classes, rle_encode_rows(masks))]
     refined, _, keep, scores, cls_ids = isbnet_postprocess(
-        outputs, batch.spp, batch.valid, point2voxel.int(),
-        torch.as_tensor(point_spp_c, device=dev),
+        outputs, batch.spp, batch.valid, point2voxel.int(), point_spp_c,
         next_bucket(max(n_pspp, 1), min_size=128), cfg)
     kept = torch.nonzero(keep).flatten()
     rles = rle_encode_rows(refined[kept, :n_points])
     scores = scores[kept].cpu().numpy()
     labels = cls_ids[kept].cpu().numpy()
-    return [dict(scan_id=scan_id, label_id=int(labels[j]) + cfg.label_offset,
-                 conf=float(scores[j]), pred_mask=rles[j])
-            for j in range(len(kept))]
+    return instances + [dict(scan_id=scan_id, label_id=int(labels[j]) + cfg.label_offset,
+                             conf=float(scores[j]), pred_mask=rles[j])
+                        for j in range(len(kept))]
+
+
+def sem2ins_masks(semantic_scores, point2voxel, point_spp_c, n_pspp: int, n_points: int,
+                  classes) -> torch.Tensor:
+    """The points of each class in ``classes`` by the semantic argmax of
+    their voxel (a point of no voxel has none), then made whole superpoints:
+    a superpoint joins the mask where at least half of its points are in it
+    and leaves it otherwise. -> [len(classes), n_points] bool."""
+    dev = semantic_scores.device
+    p2v = point2voxel[:n_points].long()
+    sem = torch.where(p2v >= 0, semantic_scores.argmax(1)[p2v.clamp(min=0)], -1)
+    masks = sem[None, :] == torch.as_tensor(classes, device=dev)[:, None]
+    if n_pspp == 0:
+        return masks
+    sc = point_spp_c[:n_points].long()
+    ok = sc >= 0
+    counts = torch.bincount(sc[ok], minlength=n_pspp)
+    inside = torch.stack([torch.bincount(sc[ok & m], minlength=n_pspp) for m in masks])
+    spp_mask = 2 * inside >= counts.clamp(min=1)
+    return torch.where(ok, spp_mask[:, sc.clamp(min=0)], masks)
 
 
 def spformer_select(cls_logits, score_logits, mask_logits, spp_weights, topk_insts: int,

@@ -10,7 +10,8 @@ output.
 ``forward`` is the JAX module's ``__call__``: the one-shot pass that the
 training step differentiates (``model.train()``; BatchNorm takes batch
 statistics) and that runs without a graph in eval mode.
-``forward_inference`` is iterative sampling with visited-superpoint masking.
+``forward_inference`` is iterative sampling with visited-superpoint masking;
+with ``x4_split`` it serves an S3DIS room split into 4 interleaved pieces.
 ``cfg.fixed_modules`` freezes modules as the JAX package does: a frozen
 backbone or point-wise head stays in eval mode under ``model.train()`` and
 its output is detached; ``train/state.py`` leaves every frozen module out of
@@ -22,7 +23,7 @@ returns their outputs (``semantic_scores``, ``corners_offset``,
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -212,18 +213,24 @@ class ISBNet(nn.Module):
 
     # ------------------------------------------------------------------ #
 
-    def trunk(self, batch: VoxelBatch):
+    def backbone_input(self, batch: VoxelBatch):
+        """The backbone's input features: colours, and the coordinates where
+        the config says so."""
+        if self.cfg.with_coords:
+            return torch.cat([batch.feats, batch.coords_float], 1)
+        return batch.feats
+
+    def trunk(self, batch: VoxelBatch, feats=None):
         """Backbone -> pointwise heads -> bg filter -> superpoint pooling ->
-        dense views -> stage-1 aggregator."""
+        dense views -> stage-1 aggregator. ``feats`` (the backbone's output)
+        skips the backbone: the x4_split path runs it on the pieces."""
         cfg = self.cfg
         B = batch.batch_size
         V = batch.feats.shape[0]
         S = batch.n_spp
 
-        in_feats = batch.feats
-        if cfg.with_coords:
-            in_feats = torch.cat([in_feats, batch.coords_float], 1)
-        feats = self._gated("backbone", in_feats, batch.plan)  # [V, C]
+        if feats is None:
+            feats = self._gated("backbone", self.backbone_input(batch), batch.plan)  # [V, C]
         sem_scores, corners_offset, box_conf = self.pointwise_head(feats, batch.valid)
         box_preds = corners_offset + batch.coords_float.repeat(1, 2)
         out: Dict[str, object] = dict(semantic_scores=sem_scores, corners_offset=corners_offset,
@@ -299,15 +306,25 @@ class ISBNet(nn.Module):
         return out
 
     @torch.no_grad()
-    def forward_inference(self, batch: VoxelBatch,
-                          n_sample_arr: Tuple[int, ...] = (192, 128, 64)) -> Dict[str, object]:
+    def forward_inference(self, batch: VoxelBatch, n_sample_arr: Tuple[int, ...] = (192, 128, 64),
+                          x4_split: bool = False) -> Dict[str, object]:
         """Iterative sampling: rounds of FPS with shrinking sample counts,
         masking out stage-1 candidates whose superpoint a predicted mask of
         an earlier round already covers. Proposals are concatenated over
-        rounds (P = sum(n_sample_arr))."""
+        rounds (P = sum(n_sample_arr)).
+
+        ``x4_split`` (S3DIS rooms): the batch's items are the interleaved
+        pieces of one room; the backbone runs them as batch items (the plan
+        never crosses items), and everything after it sees one merged scene
+        (``batch_idx`` 0, batch size 1)."""
         if self.cfg.semantic_only:
             raise ValueError("a semantic_only model has no instance path: call forward")
-        out, mid = self.trunk(batch)
+        if x4_split:
+            feats = self.backbone(self.backbone_input(batch), batch.plan)
+            batch = replace(batch, batch_idx=torch.zeros_like(batch.batch_idx), batch_size=1)
+            out, mid = self.trunk(batch, feats=feats)
+        else:
+            out, mid = self.trunk(batch)
         agg1 = mid["agg1"]
         B = agg1.valid.shape[0]
         S = self.cfg.spp_cap

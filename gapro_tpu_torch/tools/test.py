@@ -3,6 +3,7 @@
 
     python -m gapro_tpu_torch.tools.test configs/isbnet_scannetv2.yaml runs/isbnet/latest
     python -m gapro_tpu_torch.tools.test configs/spformer_scannetv2.yaml runs/spf/latest
+    python -m gapro_tpu_torch.tools.test configs/isbnet_s3dis.yaml runs/s3dis/best
     python -m gapro_tpu_torch.tools.test configs/tiny_synthetic.yaml --synthetic 2 --device cpu
 
 ``run_test(cfg, checkpoint, ...)`` serves each scene of a split at batch 1
@@ -11,9 +12,12 @@
 times each scene on the host clock with the device synchronised, optionally
 writes the ScanNet benchmark's submission format (``--out``), and scores
 the instances with ``ScanNetEval``: AP, and for SPFormer also box AP, as
-the reference does. Without a checkpoint the weights are drawn from
-``--seed``. The s3dis ``x4_split`` and ``--save_pointwise`` are not ported
-yet.
+the reference does. On S3DIS (``data.type``) the labels are S3DIS's and
+mCov, mWCov, mPrec and mRec follow (``S3DISEval``); with the test
+section's ``x4_split`` an ISBNet serves each room as 4 interleaved pieces
+(``S3DISDataset.split_pieces``) in one batch, and each mask is put back
+into the room's point order. Without a checkpoint the weights are drawn
+from ``--seed``. ``--save_pointwise`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,13 +33,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.dataset import build_dataloader
+from ..data.dataset import S3DISDataset, build_dataloader
 from ..device import resolve_device
-from ..eval.instance_eval import SCANNET_INSTANCE_CLASSES, ScanNetEval
+from ..eval.instance_eval import S3DIS_INSTANCE_CLASSES, SCANNET_INSTANCE_CLASSES, ScanNetEval
 from ..eval.runner import infer_scene_instances, make_infer_fn
+from ..eval.s3dis_eval import S3DISEval
+from ..models.prepare import points_to_batch_np
 from ..train.checkpoint import load_model_weights
 from ..train.config import load_config
-from ..utils.rle import rle_decode
+from ..utils.rle import rle_decode, rle_encode
 from .train import build_dataset, build_model, make_prepare
 
 
@@ -46,8 +52,9 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
     """Serve and score the config's test split (or ``dataset``) on one
     device (``cuda`` unless named). ``model`` replaces the one built from
     the config and ``checkpoint``. Returns the per-scene seconds, the
-    instance records and, with ``evaluate``, the AP dict (``result``) and
-    for SPFormer the box AP dict (``box_result``)."""
+    instance records and, with ``evaluate``, the AP dict (``result``), for
+    SPFormer the box AP dict (``box_result``) and on S3DIS the dict of
+    mCov, mWCov, mPrec and mRec (``s3dis_result``)."""
     log = logging.getLogger("test")
     dev = resolve_device(device)
     if model is None:
@@ -59,6 +66,7 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
     if dataset is None:
         dataset = build_dataset(cfg, synthetic, training=False)
     model_type = cfg.model.type
+    x4 = model_type == "isbnet" and bool(cfg.get("test", {}).get("x4_split", False))
     infer = make_infer_fn(model, model_type)
     prepare = make_prepare(cfg, dev)
 
@@ -69,11 +77,13 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        prepared = prepare(lb.points, 1)
-        outputs = infer(prepared.batch)
-        insts = infer_scene_instances(model_type, outputs, prepared.batch, scene["spp"],
-                                      prepared.point2voxel, n_points, scan_id,
-                                      cfg.get("test", {}))
+        if x4:
+            insts = serve_room(model, cfg, scene, prepare, dataset.voxel_cfg.scale, scan_id)[2]
+        else:
+            prepared = prepare(lb.points, 1)
+            insts = infer_scene_instances(model_type, infer(prepared.batch), prepared.batch,
+                                          scene["spp"], prepared.point2voxel, n_points, scan_id,
+                                          cfg.get("test", {}))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
@@ -87,9 +97,11 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
     if times:
         log.info("Average run time: %.4fs (median: %.4fs)", float(np.mean(times)),
                  float(np.median(times)))
-    result = box_result = None
+    result = box_result = s3dis_result = None
     if evaluate:
-        ev = ScanNetEval(SCANNET_INSTANCE_CLASSES, dataset_name=cfg.data.type)
+        s3dis = cfg.data.type == "s3dis"
+        ev = ScanNetEval(S3DIS_INSTANCE_CLASSES if s3dis else SCANNET_INSTANCE_CLASSES,
+                         dataset_name=cfg.data.type)
         result = ev.evaluate(all_preds, all_sems, all_insts)
         log.info("AP %.4f  AP50 %.4f  AP25 %.4f", result["all_ap"], result["all_ap_50%"],
                  result["all_ap_25%"])
@@ -97,7 +109,55 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
             box_result = ev.evaluate_box(all_preds, all_coords, all_sems, all_insts)
             log.info("Box AP %.4f  Box AP50 %.4f  Box AP25 %.4f", box_result["all_ap"],
                      box_result["all_ap_50%"], box_result["all_ap_25%"])
-    return dict(seconds=times, preds=all_preds, result=result, box_result=box_result)
+        if s3dis:
+            s3dis_result = dict(zip(("mcov", "mwcov", "mprec", "mrec"),
+                                    S3DISEval().evaluate(all_preds, all_sems, all_insts)))
+            log.info("mCov %.4f mWCov %.4f mPrec %.4f mRec %.4f", *s3dis_result.values())
+    return dict(seconds=times, preds=all_preds, result=result, box_result=box_result,
+                s3dis_result=s3dis_result)
+
+
+X4_PIECES = 4
+
+
+def split_room(scene, voxel_scale):
+    """An S3DIS room as x4_split serves it: the point batch of its
+    ``X4_PIECES`` interleaved pieces (``S3DISDataset.split_pieces``), their
+    superpoint ids in the batch's point order, and the room's index of each
+    of those points."""
+    pieces = S3DISDataset.split_pieces(scene, X4_PIECES)
+    return (points_to_batch_np(pieces, voxel_scale=voxel_scale),
+            np.concatenate([p["spp"] for p in pieces]),
+            np.concatenate([p["piece_indices"] for p in pieces]))
+
+
+def serve_room(model, cfg, room, prepare, voxel_scale, scan_id: str = "room", stage=None):
+    """Serve one S3DIS room as x4_split does: ``split_room`` -> ``prepare``
+    of its ``X4_PIECES`` pieces -> ISBNet's ``forward_inference(x4_split=True)``
+    -> ``get_instances`` under the config's test section -> each mask back
+    in the room's point order. ``stage()``, when given, is called after the
+    prepare and after the forward (a timer's hook). Returns the prepared
+    batch, the outputs and the instance records."""
+    points, spp, perm = split_room(room, voxel_scale)
+    prepared = prepare(points, X4_PIECES)
+    if stage:
+        stage()
+    outputs = model.forward_inference(prepared.batch, x4_split=True)
+    if stage:
+        stage()
+    insts = infer_scene_instances("isbnet", outputs, prepared.batch, spp, prepared.point2voxel,
+                                  len(perm), scan_id, cfg.get("test", {}))
+    to_room_order(insts, perm)
+    return prepared, outputs, insts
+
+
+def to_room_order(instances, perm) -> None:
+    """Put each instance's mask, in the pieces' point order, back into the
+    room's (``perm``: the room's index of each point), in place."""
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    for inst in instances:
+        inst["pred_mask"] = rle_encode(rle_decode(inst["pred_mask"])[inv])
 
 
 def export_benchmark(out_dir: str, scan_id: str, instances, n_points: int) -> None:
@@ -135,6 +195,8 @@ def main(argv=None) -> None:
     if res["box_result"] is not None:
         print(json.dumps({"box_" + k: v for k, v in res["box_result"].items()
                           if k != "classes"}))
+    if res["s3dis_result"] is not None:
+        print(json.dumps(res["s3dis_result"]))
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@
     python -m gapro_tpu_torch.tools.train configs/isbnet_scannetv2.yaml --work_dir runs/isbnet \\
         --pretrain runs/backbone/best
     python -m gapro_tpu_torch.tools.train configs/spformer_scannetv2.yaml --work_dir runs/spf
+    python -m gapro_tpu_torch.tools.train configs/isbnet_s3dis.yaml --work_dir runs/s3dis
     python -m gapro_tpu_torch.tools.train configs/tiny_synthetic.yaml --synthetic 2 \\
         --epochs 2 --device cpu
 
@@ -17,8 +18,9 @@ power of two or a multiple of ``save_freq`` (AP, or for a
 ``semantic_only`` model the point-wise mIoU), and a checkpoint
 (``latest``, ``best`` by the validation metric, ``epoch_<e>``).
 ``--only_backbone`` trains ISBNet's backbone stage (``semantic_only``);
-its checkpoint starts the full stage through ``--pretrain``. ``--dp`` is
-not ported yet and raises ``NotImplementedError``.
+its checkpoint starts the full stage through ``--pretrain``. The data is
+ScanNet or S3DIS (``data.type``: ``configs/isbnet_s3dis.yaml``). ``--dp``
+is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ..data.dataset import ScanNetDataset, SyntheticDataset, VoxelCfg, build_dataloader
+from ..data.dataset import (S3DISDataset, ScanNetDataset, SyntheticDataset, VoxelCfg,
+                            build_dataloader)
 from ..device import resolve_device
 from ..eval.runner import validate
 from ..losses.criterion import CriterionConfig
@@ -89,15 +92,15 @@ def voxel_cfg(cfg) -> VoxelCfg:
 
 
 def build_dataset(cfg, synthetic: int = 0, training: bool = True):
-    """``synthetic`` fabricated rooms, or the config's ScanNet split."""
+    """``synthetic`` fabricated rooms, or the config's ScanNet or S3DIS
+    split."""
     vc = voxel_cfg(cfg)
     if synthetic:
         return SyntheticDataset(n_scenes=synthetic, training=training, voxel_cfg=vc,
                                 repeat=cfg.data.get("repeat", 1))
-    if cfg.data.type != "scannetv2":
-        raise NotImplementedError(f"dataset type {cfg.data.type!r}: only ScanNet is ported")
+    cls = S3DISDataset if cfg.data.type == "s3dis" else ScanNetDataset
     prefix = cfg.data.prefix_train if training else cfg.data.prefix_val
-    return ScanNetDataset(cfg.data.data_root, prefix=prefix, training=training,
+    return cls(cfg.data.data_root, prefix=prefix, training=training,
                           label_type=cfg.data.get("label_type") if training else None,
                           repeat=cfg.data.get("repeat", 1) if training else 1, voxel_cfg=vc)
 

@@ -48,7 +48,8 @@ def rle_decode(rle: dict) -> np.ndarray:
     if isinstance(counts, str):
         counts = np.array([int(x) for x in counts.split()], np.int64)
     counts = np.asarray(counts, np.int64)
-    out = np.zeros(rle["length"], dtype=bool)
-    for s, n in zip(counts[::2] - 1, counts[1::2]):
-        out[s:s + n] = True
-    return out
+    # +1 where a run starts, -1 where it ends (runs are disjoint and apart)
+    edges = np.zeros(rle["length"] + 1, np.int32)
+    edges[counts[::2] - 1] = 1
+    edges[counts[::2] - 1 + counts[1::2]] -= 1
+    return np.cumsum(edges[:-1]) > 0

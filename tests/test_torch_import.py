@@ -34,7 +34,7 @@ def test_port_imports_no_jax():
             "gapro_tpu_torch.labeler.pipeline", "gapro_tpu_torch.eval.pseudo",
             "gapro_tpu_torch.tools.gen_ps", "gapro_tpu_torch.models.spformer",
             "gapro_tpu_torch.losses.spformer_criterion",
-            "gapro_tpu_torch.eval.point_wise_eval"} <= set(mods)
+            "gapro_tpu_torch.eval.point_wise_eval", "gapro_tpu_torch.eval.s3dis_eval"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -2,7 +2,7 @@
 on the tiny synthetic configurations: what the train CLI writes, exact
 resumption, the checkpoints' retention and partial loads, the test CLI's
 AP line, ISBNet's two stages (``--only_backbone``, then ``--pretrain``),
-SPFormer's train and test CLIs with box AP, the options still unported,
+SPFormer's train and test CLIs with box AP, the option still unported,
 and the full-width configurations ``chip_smoke.py`` builds in code (the
 card's machine has no PyYAML) against their YAML."""
 
@@ -136,24 +136,10 @@ def test_retention_and_partial_load(tmp_path):
         assert torch.equal(v, before[k] if k in (wrong, missing) else sd[k]), k
 
 
-def _s3dis(cfg):
-    cfg.data["type"] = "s3dis"
-    port_train.build_dataset(cfg, training=True)
-
-
-def _x4_split(cfg):
-    from gapro_tpu_torch.models.inference import TestConfig
-
-    TestConfig.from_dict(dict(cfg.test, x4_split=True))
-
-
-@pytest.mark.parametrize("option", ["dp", "s3dis", "x4_split"])
+@pytest.mark.parametrize("option", ["dp"])
 def test_unported_options_raise(option):
-    """What is still unported raises: data parallelism (``--dp``), the
-    S3DIS dataset and the s3dis test option ``x4_split``."""
-    cfg = _tiny_cfg(1)
-    run = {"dp": lambda: port_train.main([TINY, "--dp", "2", "--device", "cpu"]),
-           "s3dis": lambda: _s3dis(cfg), "x4_split": lambda: _x4_split(cfg)}[option]
+    """What is still unported raises: data parallelism (``--dp``)."""
+    run = {"dp": lambda: port_train.main([TINY, "--dp", "2", "--device", "cpu"])}[option]
     with pytest.raises(NotImplementedError):
         run()
 
@@ -246,7 +232,8 @@ def test_spformer_train_and_test_clis(tmp_path):
 @pytest.mark.parametrize("name,yaml", [
     ("ISBNET_SCANNETV2", "isbnet_scannetv2.yaml"),
     ("ISBNET_BACKBONE_SCANNETV2", "isbnet_backbone_scannetv2.yaml"),
-    ("SPFORMER_SCANNETV2", "spformer_scannetv2.yaml")])
+    ("SPFORMER_SCANNETV2", "spformer_scannetv2.yaml"),
+    ("ISBNET_S3DIS", "isbnet_s3dis.yaml")])
 def test_in_code_full_width_config_equals_yaml(name, yaml):
     assert AttrDict.wrap(getattr(chip_smoke, name)) == load_config(
         osp.join(ROOT, "configs", yaml))

@@ -21,7 +21,8 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
    on the card (dfeats by K1 on the reversed weights, dW by
    ``subm_conv_dw.cu``) against ``torch.autograd.grad`` of the plain conv,
    dW bit-identical across two launches and, with the plain dW, against
-   the same dW in fp64, timed like phase 1;
+   the same dW in fp64 (rms, and the mean error along the output's sign
+   within K1_DRIFT_ULP), timed like phase 1;
 3. reference phase: the tiny configuration on the card (kernels) against
    the same model on the CPU (plain versions), inference and one training
    step; the CPU test suite holds the CPU run against the JAX package; then
@@ -43,10 +44,11 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
    just before and read just after;
 7. plain training comparison: one step's losses, gradients and BatchNorm
    statistics on scene 0, kernels against plain versions, with the kernel
-   run's assignment injected, against a run on inputs one ulp apart; and
-   the backward kernels against theirs on a shared K1 forward; then K1 and
-   dfeats against fp64 on that step's own activations and gradients (the
-   mean along the sign within K1_DRIFT_ULP at every launch);
+   run's assignment injected, against runs on inputs one ulp away from
+   zero and one ulp towards it; and the backward kernels against theirs on
+   a shared K1 forward; then K1, dfeats and dW against fp64 on that step's
+   own activations and gradients (the mean along the sign within
+   K1_DRIFT_ULP at every launch);
 8. where the time goes: one request with its layer calls timed, and one
    request and (after phase 6) one training step under torch.profiler
    (device time by kernel, the card's busy share of the wall time);
@@ -104,7 +106,26 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
     versions with no admission, and K1 and dfeats against fp64 on its own
     inputs; dfeats and dW against their plain versions (and dW against
     fp64) at its plan's shapes, and the conv kernels timed there; the test
-    CLI with x4_split on the Area_5 rooms (AP, mCov, mWCov, mPrec, mRec).
+    CLI with x4_split on the Area_5 rooms (AP, mCov, mWCov, mPrec, mRec);
+16. the learning smoke (gapro_tpu_torch/tools/smoke_learn.py) on the card:
+    first its kernels against their plain versions at its own shapes (K1,
+    dfeats and dW at its ISBNet's and SPFormer's U-Net on its plan, K4 and
+    K5 at M = 16 on one step's and one request's inputs); then ISBNet and
+    SPFormer, 300 steps each on its two synthetic scenes, then AP, counts
+    zeroed just before and read just after; fails unless the loss falls
+    and AP25 passes 0.1;
+17. data-parallel training at full width: one ``make_dp_train_step`` step
+    on two gloo ranks on the card at the weights (1, 1) and (1, 0)
+    against an emulation in this process (each scene's step with that
+    rank's assignment, reduced alike: equal bit for bit), then a
+    world-size-1 NCCL group's step, equal bit for bit to
+    ``make_train_step``'s, then ``tools/train.py:train_dp``
+    with 2 ranks for an epoch of 8 scenes with validation on one and a
+    resume, each rank's step times printed;
+18. the self-training loop at full width on 2 bench scenes written in
+    ScanNet's layout: ``export_features`` from phase 9's trained weights,
+    ``gen_ps --use_deepfeat``, an epoch on the labels it wrote, and the
+    test CLI with ``--save_pointwise``, each stage timed.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -157,10 +178,13 @@ K1_RTOL = 1e-4
 # bias the rms gate lets through reaches every conv of every path. K1
 # summed 12 wgmmas in the tensor cores' accumulator, which truncates, and
 # drifted by -0.13 to -0.25; with per-k-step sums it read -0.03 to -0.05,
-# as dW does; each k-step's truncation is now given back on average
+# as dW did; each k-step's truncation is now given back on average
 # (csrc/subm_conv.cu: untruncate; PERF.md §6). Held on random inputs at
 # every K1 shape and on the activations and gradients of real training
-# steps (k1_step_drift).
+# steps (k1_step_drift). dW (csrc/subm_conv_dw.cu) is held to the same
+# bound at every shape (backward_kernel_phase) and at every launch of real
+# steps: with per-k-step sums alone it read -0.03 to -0.05 on random inputs
+# and -0.08 on the batch-1 step's own, and takes untruncate too.
 K1_DRIFT_ULP = 0.06
 CONF_SHIFT = 1.5
 MASK_FILL = -1e4  # mask logit of an invalid superpoint (models/dyco.py)
@@ -183,15 +207,17 @@ GRAD_ATOL = 1e-5
 # 1e-2 of their scale: a max-pool whose two largest entries lie within
 # rounding may pick the other one and send that gradient to another voxel,
 # and a voxel whose loss term sits on a tie of |x| or max(x, 0) flips its
-# gradient; either weighs most at the deep levels' few voxels. Two more
-# runs, of the kernels and of the plain versions on input colours one ulp
-# apart, measure that spread: a leaf's spread is the larger of the two
-# paths' (the reference's own run may be the one that sits on a tie, as
-# the batch-8 backbone step's does, PERF.md §6). Kernels against plain
-# versions must then be no worse than NOISE_FACTOR times it: the largest
-# leaf error, in units of the leaf's tolerance, at most NOISE_FACTOR times
-# the largest spread (and 1 if that is below 1), and at most NOISE_FACTOR
-# times as many leaves over their tolerance as spreads over it.
+# gradient; either weighs most at the deep levels' few voxels. Runs of each
+# path on input colours one ulp away from zero and one ulp towards it
+# (``nudged``) measure that spread: a leaf's spread is the larger of the
+# two directions' (one direction is a single draw of the ties, which a
+# rounding change redraws), and the plain path's own runs find the leaves
+# where the reference is the one on a tie, as in the batch-8 backbone step
+# (PERF.md §6). Kernels against plain versions must then be no worse than
+# NOISE_FACTOR times the kernel path's spread: the largest leaf error, in
+# units of the leaf's tolerance, at most NOISE_FACTOR times the largest
+# spread (and 1 if that is below 1), and at most NOISE_FACTOR times as
+# many leaves over their tolerance as the larger of the two runs' counts.
 NOISE_FACTOR = 2.0
 # K5 against its plain version: the JAX package's own tolerance for the same
 # function summed in another order (tests/test_dyco_pallas.py).
@@ -864,43 +890,56 @@ def k1_phase(cfg, caps, levels, dev, row_orders: bool = True) -> dict:
     return k1
 
 
-def k1_step_drift(model, prepared, crit, what: str) -> float:
-    """K1 against fp64 on what a real training step feeds it: every K1
-    launch of one step's forward (the activations after BatchNorm and ReLU,
-    many of them exact zeros, and the model's weights) and every dfeats
-    launch of its backward (the step's gradients), each beside the plain
-    fp32 version and the fp64 conv on the same inputs. Fails when the mean
-    error along the output's sign passes K1_DRIFT_ULP at any launch, as
-    ``k1_phase`` does on random inputs. Returns the largest such mean in
-    absolute value."""
+def k1_step_drift(model, prepared, crit, what: str) -> dict:
+    """The conv kernels against fp64 on what a real training step feeds
+    them: every K1 launch of one step's forward (the activations after
+    BatchNorm and ReLU, many of them exact zeros, and the model's weights),
+    every dfeats launch of its backward (the step's gradients) and every dW
+    launch (those activations against those gradients), each beside the
+    plain fp32 version and the fp64 conv on the same inputs. Fails when the
+    mean error along the output's sign passes K1_DRIFT_ULP at any launch,
+    as ``k1_phase`` and ``backward_kernel_phase`` do on random inputs.
+    Returns the largest such mean in absolute value of each kernel."""
     import torch
 
     from gapro_tpu_torch.sparse import conv
 
     rows = []
-    k1, dfeats = conv.subm_conv_cuda, conv.subm_conv_dfeats_cuda
+    k1, dfeats, dw = conv.subm_conv_cuda, conv.subm_conv_dfeats_cuda, conv.subm_conv_dw_cuda
+
+    def record(name, a, valid, got, plain, ref):
+        if bool(ref.abs().max() > 0):
+            rms, plain_rms, drift, along = fp64_drift(got, plain, ref, valid, name)
+            zeros = a[valid] if valid is not None else a
+            rows.append((name, tuple(got.shape), float((zeros == 0).float().mean()),
+                         rms / plain_rms, along, drift))
 
     def held(kernel, name):
         def run(a, nbr, w, valid, tables):
             got = kernel(a, nbr, w, valid, tables=tables)
             with torch.no_grad():
-                ref = conv.subm_conv(a.double(), nbr, w.double(), valid)
-                if bool(ref[valid].abs().max() > 0):
-                    rms, plain_rms, drift, along = fp64_drift(
-                        got, conv.subm_conv(a, nbr, w, valid), ref, valid, name)
-                    rows.append((name, tuple(a.shape), float((a[valid] == 0).float().mean()),
-                                 rms / plain_rms, along, drift))
+                record(name, a, valid, got, conv.subm_conv(a, nbr, w, valid),
+                       conv.subm_conv(a.double(), nbr, w.double(), valid))
             return got
         run.launches = 0  # the kernel counts its launch here: a check's launch, not the path's
         return run
 
+    def held_dw(a, nbr, dout, tables):
+        got = dw(a, nbr, dout, tables=tables)
+        with torch.no_grad():
+            record("dW", a, None, got, conv.subm_conv_dw(a, nbr, dout),
+                   conv.subm_conv_dw(a.double(), nbr, dout.double()))
+        return got
+    held_dw.launches = 0
+
     conv.subm_conv_cuda, conv.subm_conv_dfeats_cuda = held(k1, "K1"), held(dfeats, "dfeats")
+    conv.subm_conv_dw_cuda = held_dw
     try:
         one_step_grads(model, prepared, crit)
     finally:
-        conv.subm_conv_cuda, conv.subm_conv_dfeats_cuda = k1, dfeats
+        conv.subm_conv_cuda, conv.subm_conv_dfeats_cuda, conv.subm_conv_dw_cuda = k1, dfeats, dw
     torch.cuda.synchronize()
-    for name in ("K1", "dfeats"):
+    for name in ("K1", "dfeats", "dW"):
         mine = [r for r in rows if r[0] == name]
         worst = max(mine, key=lambda r: abs(r[4]))
         print(f"{what}, {name} on the step's own inputs against fp64 ({len(mine)} launches, "
@@ -913,7 +952,7 @@ def k1_step_drift(model, prepared, crit, what: str) -> float:
         if abs(along) > K1_DRIFT_ULP:
             fail(f"{what}: {name} at {shape} on the step's own inputs drifts along the output's "
                  f"sign by more than {K1_DRIFT_ULP} ulp against fp64: {drift}")
-    return max(abs(r[4]) for r in rows)
+    return {name: max(abs(r[4]) for r in rows if r[0] == name) for name in ("K1", "dfeats", "dW")}
 
 
 def backward_kernel_phase(cfg, caps, levels, dev, row_orders: bool = True) -> tuple:
@@ -970,12 +1009,16 @@ def backward_kernel_phase(cfg, caps, levels, dev, row_orders: bool = True) -> tu
             fail(f"dfeats at V={v}: invalid rows are not exactly 0")
         if not torch.equal(got_dw, again):
             fail(f"dW at V={v} Cin={cin} Cout={cout} differs between two launches")
-        rms, plain_rms, drift, _ = fp64_drift(
+        rms, plain_rms, drift, along = fp64_drift(
             got_dw, conv.subm_conv_dw(feats, nbr, dout),
             conv.subm_conv_dw(feats.double(), nbr, dout.double()), name="dW")
         if rms > NOISE_FACTOR * plain_rms:
             fail(f"dW at V={v} Cin={cin} Cout={cout} is further from fp64 than fp32 is: {drift}")
+        if abs(along) > K1_DRIFT_ULP:
+            fail(f"dW at V={v} Cin={cin} Cout={cout} drifts along the output's sign by more "
+                 f"than {K1_DRIFT_ULP} ulp against fp64: {drift}")
         acc["dw"]["fp64"] = max(acc["dw"]["fp64"], rms / plain_rms)
+        acc["dw"]["drift"] = max(acc["dw"]["drift"], abs(along))
         line.append("dW against fp64: " + drift)
         if row_orders and v in caps[:2]:
             spatial = spatial_tables(nbr)
@@ -989,8 +1032,9 @@ def backward_kernel_phase(cfg, caps, levels, dev, row_orders: bool = True) -> tu
     for key, count in (("dfeats", n - 1), ("dw", n)):
         print(conv_step_line(key, count, acc[key]), flush=True)
     print(f"dW against fp64 at the {len(shapes)} shapes: rms at most {acc['dw']['fp64']:.3g} "
-          f"times the plain "
-          f"fp32 version's (gate {NOISE_FACTOR}); bit-identical across launches", flush=True)
+          f"times the plain fp32 version's (gate {NOISE_FACTOR}); the mean along the sign at "
+          f"most {acc['dw']['drift']:.3g} ulp in absolute value (gate {K1_DRIFT_ULP}); "
+          f"bit-identical across launches", flush=True)
     return acc["dfeats"], acc["dw"]
 
 
@@ -1004,15 +1048,21 @@ def grads_and_stats(model) -> tuple:
 def compare_step(got: tuple, want: tuple, rtols: tuple, what: str, noise=None,
                  want_noise=None, admit_outliers: bool = False) -> str:
     """Losses, gradients and BatchNorm statistics of one step, each within
-    its tolerance in ``rtols`` (losses, gradients, statistics). ``noise``, a
-    third run of ``got``'s path on inputs one ulp apart, sets the gradients'
-    bound as NOISE_FACTOR says. ``want_noise``, the same run of ``want``'s
-    path, finds the leaves where ``want`` is the outlier: its own one-ulp
-    run moves the leaf past the tolerance, and ``got`` lies within the
-    tolerance of that run. Both readings are printed; with
-    ``admit_outliers`` the gate holds those leaves against ``want_noise``
-    instead of ``want``, and every other leaf as before. Returns a summary
-    of the agreement."""
+    its tolerance in ``rtols`` (losses, gradients, statistics). ``noise``,
+    two more runs of ``got``'s path on inputs one ulp away from zero and one
+    ulp towards it (``nudged``), sets the gradients' bound as NOISE_FACTOR
+    says: a leaf's spread is the larger of the two directions' spreads, the
+    noise runs' count of leaves over the tolerance the larger of their two
+    counts. Each direction's reading is printed on its own line, with what
+    the gate would read from the away direction alone (the old one-sample
+    gate's nudge, ``feats * (1 + 2^-23)``, moved every value away from
+    zero). ``want_noise``, the same two runs of ``want``'s path, finds the
+    leaves where ``want`` is the outlier: one of its own one-ulp runs moves
+    the leaf past the tolerance, and ``got`` lies within the tolerance of
+    that run. Both readings are printed; with ``admit_outliers`` the gate
+    holds those leaves against that run of ``want``'s path instead of
+    ``want``, and every other leaf as before. Returns a summary of the
+    agreement."""
     import torch
 
     (lg, gg, sg), (lw, gw, sw) = got, want
@@ -1027,7 +1077,8 @@ def compare_step(got: tuple, want: tuple, rtols: tuple, what: str, noise=None,
     def dist(x, y, tol):
         return float((x.cpu() - y.cpu()).abs().max()) / tol
 
-    worst, outliers, want_over = [], [], 0
+    runs = noise or ()
+    worst, outliers, spreads, want_over = [], [], [], [0] * len(want_noise or ())
     for k, w in gw.items():
         a = gg[k]
         if (a is None) != (w is None):
@@ -1038,13 +1089,17 @@ def compare_step(got: tuple, want: tuple, rtols: tuple, what: str, noise=None,
         a, w = a.cpu(), w.cpu()
         tol = grad_rtol * float(w.abs().max()) + GRAD_ATOL * top
         err = dist(a, w, tol)
-        spread = dist(noise[1][k], a, tol) if noise is not None else 0.0
+        spreads.append([dist(run[1][k], a, tol) for run in runs])
         if want_noise is not None:
-            want_spread, err_alt = dist(want_noise[1][k], w, tol), dist(a, want_noise[1][k], tol)
-            want_over += want_spread > 1
-            if want_spread > 1 and err_alt <= 1 and err > 1:
-                outliers.append((k, err, err_alt, want_spread, spread))
-        worst.append((err, spread, k))
+            alt = []
+            for i, run in enumerate(want_noise):
+                want_spread, err_alt = dist(run[1][k], w, tol), dist(a, run[1][k], tol)
+                want_over[i] += want_spread > 1
+                if want_spread > 1 and err_alt <= 1 and err > 1:
+                    alt.append((err_alt, want_spread))
+            if alt:
+                outliers.append((k, err, *min(alt), max(spreads[-1], default=0.0)))
+        worst.append((err, max(spreads[-1], default=0.0), k))
         if not torch.isfinite(a).all():
             bad.append(f"grad {k} is not finite")
     bn_err = 0.0
@@ -1057,19 +1112,31 @@ def compare_step(got: tuple, want: tuple, rtols: tuple, what: str, noise=None,
     worst.sort(reverse=True)
     over = sum(e > 1 for e, _, _ in worst)
     noise_max = max(n for _, n, _ in worst)
-    noise_over = sum(n > 1 for _, n, _ in worst)
+    noise_over = max((sum(sp[i] > 1 for sp in spreads) for i in range(len(runs))), default=0)
     bound = max(1.0, NOISE_FACTOR * noise_max)
     if noise is not None:
-        print(f"{what}: the 8 gradient leaves furthest from agreement, as (error, the noise "
-              f"run's spread) over the tolerance: "
+        for i, direction in enumerate(NUDGES):
+            d_max = max(sp[i] for sp in spreads)
+            d_over = sum(sp[i] > 1 for sp in spreads)
+            d_bound = max(1.0, NOISE_FACTOR * d_max)
+            held = worst[0][0] <= d_bound and over <= NOISE_FACTOR * d_over
+            print(f"{what}: the noise run one ulp {direction}: largest spread {d_max:.3g} of the "
+                  f"tolerance, {d_over} leaves over it; from it alone the bound would be "
+                  f"{d_bound:.3g} and {NOISE_FACTOR * d_over:.0f} leaves allowed over"
+                  + (f" (the up-only gate: {'held' if held else 'FAILED'})" if i == 0 else ""),
+                  flush=True)
+        print(f"{what}: the 8 gradient leaves furthest from agreement, as (error, the larger "
+              f"noise spread) over the tolerance: "
               + "; ".join(f"{k} ({e:.3g}, {n:.3g})" for e, n, k in worst[:8]), flush=True)
-        print(f"{what}: leaves over the tolerance: {over} of {len(worst)}; the noise run's "
-              f"over it: {noise_over}; largest {worst[0][0]:.3g} against the noise run's "
-              f"{noise_max:.3g}", flush=True)
+        print(f"{what}: leaves over the tolerance: {over} of {len(worst)}; the noise runs' "
+              f"over it: {noise_over}; largest {worst[0][0]:.3g} against the noise runs' "
+              f"{noise_max:.3g} (bound {bound:.3g}, {NOISE_FACTOR * noise_over:.0f} leaves "
+              f"allowed over)", flush=True)
     if want_noise is not None:
-        print(f"{what}: the second path's own one-ulp run moves {want_over} leaves past the "
-              f"tolerance; leaves over it where the second path is the outlier (error, error "
-              f"against its one-ulp run, that run's spread, the noise run's spread): "
+        print(f"{what}: the second path's own one-ulp runs move {max(want_over)} leaves past the "
+              f"tolerance ({' and '.join(f'{n} {d}' for n, d in zip(want_over, NUDGES))}); "
+              f"leaves over it where the second path is the outlier (error, error against its "
+              f"nearest one-ulp run, that run's spread, the noise runs' spread): "
               + ("; ".join(f"{k} ({e:.3g}, {e2:.3g}, {n2:.3g}, {n:.3g})"
                            for k, e, e2, n2, n in outliers) or "none"), flush=True)
     gate = worst
@@ -1081,18 +1148,37 @@ def compare_step(got: tuple, want: tuple, rtols: tuple, what: str, noise=None,
               f"{gate[0][0]:.3g} ({gate[0][2]})", flush=True)
     gate_over = sum(e > 1 for e, _, _ in gate)
     if gate[0][0] > bound or gate_over > NOISE_FACTOR * noise_over:
-        bad.append(f"gradients: {gate_over} leaves over their tolerance (the noise run: "
+        bad.append(f"gradients: {gate_over} leaves over their tolerance (the noise runs: "
                    f"{noise_over}), the largest at {gate[0][0]:.3g} of it ({gate[0][2]}; "
                    f"bound {bound:.3g})")
     if bad:
         fail(f"{what}: " + "; ".join(bad[:12]) + (f" (+{len(bad) - 12} more)" if len(bad) > 12
                                                    else ""))
-    runs = "" if noise is None else f"; the noise run moves {noise_over} leaves past it"
+    summary = "" if noise is None else f"; the noise runs move {noise_over} leaves past it"
     if want_noise is not None:
-        runs += f", the second path's {want_over}"
+        summary += f", the second path's {max(want_over)}"
     return (f"losses within {loss_rtol}, {len(worst)} gradient leaves, the furthest at "
-            f"{worst[0][0]:.3g} of its tolerance ({worst[0][2]}){runs}, BatchNorm statistics "
+            f"{worst[0][0]:.3g} of its tolerance ({worst[0][2]}){summary}, BatchNorm statistics "
             f"within {bn_err:.3g} of scale")
+
+
+# The whole-step gate's two one-ulp runs: the input colours moved one ulp
+# away from zero, and one ulp towards it (``nudged``).
+NUDGES = ("away from zero", "towards zero")
+
+
+def nudged(prepared, direction: str):
+    """``prepared`` with its voxel colours one ulp ``direction`` (one of
+    NUDGES) by ``torch.nextafter``; an exact 0 stays 0 either way."""
+    import torch
+
+    feats = prepared.batch.feats
+    target = torch.zeros_like(feats)
+    if direction == NUDGES[0]:
+        target = torch.where(feats == 0, target, torch.copysign(torch.full_like(feats, math.inf),
+                                                                feats))
+    return prepared._replace(batch=dataclasses.replace(
+        prepared.batch, feats=torch.nextafter(feats, target)))
 
 
 def one_step_grads(model, prepared, crit, assign=None) -> tuple:
@@ -1206,10 +1292,11 @@ def train_plain_compare(make_model, prepared, crit, what: str = "training step, 
     """One step's losses, gradients and BatchNorm statistics from the same
     initial weights (``make_model()``) through the kernels and through the
     plain versions, every other run given the kernel run's assignment. The
-    whole path is held to the kernel path's 1-ulp noise run as NOISE_FACTOR
-    says (``compare_step``; with ``admit_outliers``, a leaf where the plain
-    path's own 1-ulp run crosses the tolerance and the kernels lie within
-    the tolerance of that run is held against that run); the backward
+    whole path is held to the kernel path's two 1-ulp noise runs (away from
+    zero and towards it) as NOISE_FACTOR says (``compare_step``; with
+    ``admit_outliers``, a leaf where one of the plain path's own 1-ulp runs
+    crosses the tolerance and the kernels lie within the tolerance of that
+    run is held against that run); the backward
     kernels, on a shared K1 forward, to the tolerances themselves. The
     kernel run's gradients and losses must be finite."""
     import torch
@@ -1217,9 +1304,8 @@ def train_plain_compare(make_model, prepared, crit, what: str = "training step, 
     from gapro_tpu_torch.sparse import conv
 
     kern, assign, _ = one_step_grads(make_model(), prepared, crit)
-    nudged = prepared._replace(batch=dataclasses.replace(
-        prepared.batch, feats=prepared.batch.feats * (1 + 2.0 ** -23)))
-    noise, _, _ = one_step_grads(make_model(), nudged, crit, assign=assign)
+    noise = [one_step_grads(make_model(), nudged(prepared, d), crit, assign=assign)[0]
+             for d in NUDGES]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with plain_kernels():
@@ -1227,7 +1313,8 @@ def train_plain_compare(make_model, prepared, crit, what: str = "training step, 
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     with plain_kernels():
-        plain_noise, _, _ = one_step_grads(make_model(), nudged, crit, assign=assign)
+        plain_noise = [one_step_grads(make_model(), nudged(prepared, d), crit, assign=assign)[0]
+                       for d in NUDGES]
     k1 = conv.subm_conv_cuda
     with plain_kernels():
         conv.subm_conv_cuda = k1  # put back on leaving plain_kernels
@@ -1285,13 +1372,17 @@ K4_BEFORE_B4_MS = "22.0 / 22.0"
 
 @contextlib.contextmanager
 def capture(mod, name: str, calls: list):
-    """Record the positional arguments of every call of ``mod.name``."""
+    """Record the positional arguments of every call of ``mod.name``. A
+    kernel's wrapper counts its launches on the name it is called by, so
+    the recorder carries its own ``launches``: the path's counts stay as
+    they were."""
     f = getattr(mod, name)
 
     def recorded(*args, **kwargs):
         calls.append(args)
         return f(*args, **kwargs)
 
+    recorded.launches = 0
     setattr(mod, name, recorded)
     try:
         yield
@@ -1953,7 +2044,7 @@ def k5_case(args, what: str) -> dict:
 
     from gapro_tpu_torch.models import dyco
 
-    b, q, s = args[0].shape[0], args[0].shape[1], args[-1].shape[1]
+    b, q, s, m = args[0].shape[0], args[0].shape[1], args[-1].shape[1], args[0].shape[-1]
     got, again = dyco.dyco_cuda(*args), dyco.dyco_cuda(*args)
     want = dyco.dyco_mlp_plain(*args)
     ref = dyco.dyco_mlp_plain(*(a.double() for a in args[:-1]), args[-1])
@@ -1979,9 +2070,9 @@ def k5_case(args, what: str) -> dict:
     ms = cuda_ms(lambda: dyco.dyco_cuda(*args), 10)
     dms = device_ms(lambda: dyco.dyco_cuda(*args), ("dyco_kernel", "image_kernel"))
     pms = cuda_ms(lambda: dyco.dyco_mlp_plain(*args), 3)
-    ops, nbytes = dyco_ops(pairs), dyco_bytes(b, q, s)
+    ops, nbytes = dyco_ops(pairs, m), dyco_bytes(b, q, s, m)
     bd = tc_bounds(nbytes, ops)
-    print(f"  B={b} Q={q:3d} S={s:4d} ({what}): wrapper {ms:.4f} ms (its two kernels "
+    print(f"  B={b} Q={q:3d} S={s:4d} M={m} ({what}): wrapper {ms:.4f} ms (its two kernels "
           f"{dms:.4f} ms of device time), plain {pms:.4f} ms, "
           f"bound {bd['bound']:.4f} ms ({bd['by']}, TF32; fp32 {bd['fp32']:.4f}, 3xTF32 "
           f"{bd['x3']:.4f}; {ops / 1e9:.3f} GFLOP over {pairs} valid pairs, "
@@ -2974,6 +3065,544 @@ def s3dis_phase(dev, root: str) -> dict:
                 request_ms=times)
 
 
+# ---- 16-18. the learning smoke, data-parallel training, self-training ----
+
+LEARN_STEPS = 300  # tools/smoke_learn.py's default
+LEARN_WINDOW = 20  # the loss falls: the last 20 steps' mean below the first 20's
+# The two-rank step's reduction weights: both scenes real, then scene 0 with
+# a filler (the train CLI's rule: rank 1 takes scene 0 again, weight 0).
+DP_WEIGHTS = ((1.0, 1.0), (1.0, 0.0))
+DP_SCENES = 8  # the --dp 2 epoch: four steps of one scene a rank
+DP_VAL_SCENES = 1
+SELFTRAIN_SCENES = 2
+
+
+def learn_kernel_phase(dev) -> dict:
+    """The kernels at the learning smoke's own shapes, each against its
+    plain version: K1, dfeats and dW at every conv shape of the tool's
+    ISBNet (C = 16, 4 levels, widths 16 to 64) and SPFormer (media 16) on
+    scene 0's plan (``k1_phase``, ``backward_kernel_phase``; SPFormer's
+    only where its shapes differ from ISBNet's); K4 and K5 (M = 16) on the
+    very inputs that one ISBNet training step and one request of the tool
+    give them, one case a shape (``k4_case``, ``k5_case``). Returns the
+    sums of each model held and the K4 / K5 cases."""
+    import torch
+
+    from gapro_tpu_torch.models import dyco
+    from gapro_tpu_torch.ops import fps as fps_ops
+    from gapro_tpu_torch.tools import smoke_learn
+    from gapro_tpu_torch.train.state import create_train_state
+
+    scenes, preps = smoke_learn.make_preps(dev)
+    pb, prepared = preps[0]
+    levels = prepared.batch.plan.levels
+    caps = [lp.subm_nbr.shape[0] for lp in levels]
+    out, held = {}, []
+    for name in ("isbnet", "spformer"):
+        model, crit, make_step, serve = smoke_learn.build(name, dev)
+        shapes = k1_shape_counts(model.cfg, caps)
+        if shapes in held:
+            print(f"learn, {name}: the same {len(shapes)} conv shapes as a model above, held "
+                  f"there", flush=True)
+            continue
+        held.append(shapes)
+        print(f"learn, {name}: the conv kernels at the tool's shapes (capacities {caps})",
+              flush=True)
+        out[name] = dict(k1=k1_phase(model.cfg, caps, levels, dev, row_orders=False))
+        out[name]["dfeats"], out[name]["dw"] = backward_kernel_phase(model.cfg, caps, levels,
+                                                                     dev, row_orders=False)
+        if name != "isbnet":
+            continue
+        fps_calls, dyco_calls = [], []
+        with capture(fps_ops, "fps_cuda", fps_calls), capture(dyco, "dyco_cuda", dyco_calls):
+            st = create_train_state(model, lr=smoke_learn.LR[name])
+            make_step(model, crit)(st, prepared, smoke_learn.LR[name])
+            serve(scenes[0], pb, prepared)
+        torch.cuda.synchronize()
+        print(f"learn, {name}: K4 and K5 on one training step's and one request's own inputs:",
+              flush=True)
+        seen, out["k4"], out["k5"] = set(), [], []
+        for xyz, valid, n_sample in fps_calls:
+            key = ("fps", tuple(xyz.shape), n_sample)
+            if key not in seen:
+                seen.add(key)
+                out["k4"].append(k4_case(xyz.detach().clone(), valid.clone(), n_sample,
+                                         f"learning smoke, N={xyz.shape[1]} -> {n_sample}"))
+        for args in dyco_calls:
+            key = ("dyco", tuple(args[0].shape), tuple(args[-1].shape))
+            if key not in seen:
+                seen.add(key)
+                out["k5"].append(k5_case(tuple(a.detach().clone() for a in args),
+                                         "learning smoke"))
+        if not out["k4"] or not out["k5"]:
+            fail(f"learn, {name}: the step and the request launched K4 {len(fps_calls)} and "
+                 f"K5 {len(dyco_calls)} times")
+    return out
+
+
+def learn_phase(dev) -> dict:
+    """The learning smoke (``gapro_tpu_torch/tools/smoke_learn.py``) on the
+    card, ISBNet and then SPFormer: first ``learn_kernel_phase``, the
+    kernels at its shapes against their plain versions; then LEARN_STEPS
+    steps over its two scenes, then both served and scored with
+    ScanNetEval, the counts zeroed just before and read just after. Fails
+    unless the loss falls (the last LEARN_WINDOW steps' mean below the
+    first's), ``all_ap_25%`` passes the tool's floor (0.1) and every kernel
+    of the model's path launched."""
+    import torch
+
+    from gapro_tpu_torch.tools import smoke_learn
+
+    out = {"kernels": learn_kernel_phase(dev)}
+    conv = ("subm_conv", "subm_conv_dfeats", "subm_conv_dw")
+    for name, need in (("isbnet", conv + ("fps", "dyco")), ("spformer", conv)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        res = smoke_learn.run(name, LEARN_STEPS, dev, log=None)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        losses, r = res["losses"], res["result"]
+        first = statistics.mean(losses[:LEARN_WINDOW])
+        last = statistics.mean(losses[-LEARN_WINDOW:])
+        marks = list(range(0, LEARN_STEPS, 50)) + [LEARN_STEPS - 1]
+        out[name] = dict(first=first, last=last, steps_per_s=LEARN_STEPS / res["seconds"],
+                         ap=r["all_ap"], ap50=r["all_ap_50%"], ap25=r["all_ap_25%"],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+                         instances=res["instances"])
+        print(f"learn, {name}: loss " + ", ".join(f"step {i} {losses[i]:.4f}" for i in marks)
+              + f" (the first {LEARN_WINDOW} steps' mean {first:.4f}, the last {LEARN_WINDOW}'s "
+              f"{last:.4f}); {LEARN_STEPS / res['seconds']:.2f} steps/s ({res['seconds']:.1f} s); "
+              f"AP {r['all_ap']:.4f} AP50 {r['all_ap_50%']:.4f} AP25 {r['all_ap_25%']:.4f}; "
+              f"instances {res['instances']}; peak device memory {out[name]['peak_gib']:.3f} "
+              f"GiB; launches {launches}", flush=True)
+        if not last < first:
+            fail(f"learn, {name}: the loss did not fall ({first:.4f} -> {last:.4f})")
+        if not r["all_ap_25%"] > smoke_learn.AP25_FLOOR:
+            fail(f"learn, {name}: AP25 {r['all_ap_25%']:.4f} <= {smoke_learn.AP25_FLOOR}: the "
+                 f"model failed to learn")
+        if any(launches[k] == 0 for k in need):
+            fail(f"learn, {name}: a kernel of the path never launched: {launches}")
+    return out
+
+
+def dp_step_rank(rank, init_method, results, device_type, cfg, bufs, shrink, inst_cap,
+                 out_dir) -> None:
+    """One of the two ranks of ``dp_step_phase``: a gloo group on one card;
+    for each of DP_WEIGHTS, the model from seed 0, replicated from rank 0,
+    one ``make_dp_train_step`` step on this rank's buffer, timed by stage
+    with the counts zeroed just before and read just after. Rank 0 saves
+    the reduced gradients, statistics, losses and parameters; every rank
+    reports its assignment, stage times, launches and state digest."""
+    import torch
+    import torch.distributed as dist
+
+    from gapro_tpu_torch.losses.criterion import CriterionConfig
+    from gapro_tpu_torch.models import isbnet, prepare
+    from gapro_tpu_torch.parallel.mesh import data_parallel_mesh, replicate
+    from gapro_tpu_torch.tools.train import state_digest
+    from gapro_tpu_torch.train import state, step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = data_parallel_mesh(2, rank, init_method, device_type)
+    try:
+        summary = []
+        for i, w in enumerate(DP_WEIGHTS):
+            model = isbnet.ISBNet(cfg, seed=0, device=group.device)
+            replicate(model, group)
+            st = state.create_train_state(model, lr=TRAIN_LR)
+            assigns, stamps = [], []
+
+            def loss_fn(m, prepared, crit, mark):
+                res = step._loss_fn(m, prepared, crit, mark=mark)
+                assigns.append(res[1][1]["assign"].cpu())
+                return res
+
+            def mark(name):
+                if group.device.type == "cuda":
+                    torch.cuda.synchronize()
+                stamps.append((name, time.perf_counter()))
+
+            dp_step = step.make_dp_train_step(
+                model, CriterionConfig(inst_cap=inst_cap), group, loss_fn=loss_fn,
+                prepare_fn=prepare.packed_prepare(cfg.unet_levels, cfg.spp_cap, shrink),
+                on_stage=mark)
+            buf = torch.from_numpy(bufs[i][rank]).to(group.device)
+            zero_counts()
+            mark("start")
+            st, losses = dp_step(st, buf, TRAIN_LR, w[rank])
+            launches = read_counts()
+            ms = {name: (t - stamps[j][1]) * 1e3 for j, (name, t) in enumerate(stamps[1:])}
+            if rank == 0:
+                grads, stats = grads_and_stats(model)
+                torch.save(dict(losses={k: float(v) for k, v in losses.items()},
+                                grads={k: v.cpu() for k, v in grads.items()},
+                                stats={k: v.cpu() for k, v in stats.items()},
+                                params={k: p.detach().cpu() for k, p in model.named_parameters()}),
+                           os.path.join(out_dir, f"weights{i}.pt"))
+            # numpy, not tensors: a queue shares a tensor's memory with a
+            # process that may have exited by the time it is read
+            summary.append(dict(ms=ms, launches=launches, assign=assigns[0].numpy(),
+                                digest=state_digest(st)))
+        results.put((rank, dict(backend=group.backend, device=str(group.device),
+                                steps=summary)))
+    finally:
+        dist.destroy_process_group()
+
+
+def weighted_run(runs, w):
+    """``sum(w * x) / max(sum(w), 1e-6)`` of the (losses, gradients,
+    statistics) of one-scene runs, as the data-parallel step reduces them:
+    a missing gradient counts as zeros where another run has one, the
+    losses are reduced in fp32, and an integer buffer (a BatchNorm's step
+    count) is not reduced."""
+    import torch
+
+    wsum = max(sum(w), 1e-6)
+    mean = lambda xs: sum(wi * x for wi, x in zip(w, xs)) / wsum
+
+    def grad(xs):
+        have = [x for x in xs if x is not None]
+        return mean([torch.zeros_like(have[0]) if x is None else x for x in xs]) if have else None
+
+    losses = {k: float(mean([torch.tensor(r[0][k], dtype=torch.float32) for r in runs]))
+              for k in runs[0][0]}
+    grads = {k: grad([r[1][k] for r in runs]) for k in runs[0][1]}
+    stats = {k: (mean([r[2][k] for r in runs]) if runs[0][2][k].is_floating_point()
+                 else runs[0][2][k]) for k in runs[0][2]}
+    return losses, grads, stats
+
+
+def zero_fill(dp_grads: dict, others: list) -> None:
+    """Zeros, in place, in each of ``others`` where a parameter has no
+    gradient but the data-parallel step's has one: that step gives every
+    trained parameter a gradient (zeros where the loss does not reach it,
+    as ``jax.grad`` does), so the ranks sum tensors of one shape."""
+    import torch
+
+    for k, g in dp_grads.items():
+        for grads in others:
+            if grads.get(k) is None and g is not None:
+                grads[k] = torch.zeros_like(g)
+
+
+def equal_step(got: tuple, want: tuple, what: str, noise_fn) -> str:
+    """The data-parallel step's (losses, reduced gradients, statistics)
+    against its emulation's, which runs the same kernels on the same inputs
+    and reduces by the same sum: every loss (in fp32), gradient leaf and
+    BatchNorm statistic equal bit for bit. Where one differs, ``compare_step``
+    prints how far, with ``noise_fn()``'s two one-ulp runs as its noise, as
+    the diagnosis, and the phase fails."""
+    import numpy as np
+    import torch
+
+    (lg, gg, sg), (lw, gw, sw) = got, want
+    differ = [f"loss {k}" for k in lw if np.float32(lg[k]) != np.float32(lw[k])]
+    for k, w in gw.items():
+        a = gg[k]
+        if (a is None) != (w is None) or (w is not None and not torch.equal(a.cpu(), w.cpu())):
+            differ.append(f"gradient {k}")
+    differ += [f"statistic {k}" for k, w in sw.items() if not torch.equal(sg[k].cpu(), w.cpu())]
+    n_grads = sum(g is not None for g in gw.values())
+    if differ:
+        print(f"{what}: {len(differ)} of {len(lw)} losses, {n_grads} gradient leaves and "
+              f"{len(sw)} statistics differ bit for bit: " + ", ".join(differ[:12])
+              + "; the diagnosis:", flush=True)
+        compare_step(got, want, PATH_RTOLS, what, noise=noise_fn())
+        fail(f"{what}: {len(differ)} values differ bit for bit from the emulation: "
+             + ", ".join(differ[:12]))
+    return (f"the {len(lw)} losses, {n_grads} gradient leaves and {len(sw)} statistics equal "
+            f"bit for bit")
+
+
+def dp_step_phase(dev, cfg, pbs, what: str, shrink=FULL_SHRINK, inst_cap: int = INST_CAP) -> dict:
+    """The data-parallel step (``train/step.py:make_dp_train_step``) on two
+    gloo ranks on one card, against an emulation in this process: each
+    scene's kernel-path step from the same initial weights (seed 0), with
+    that rank's own assignment, reduced by the same formula, at each of
+    DP_WEIGHTS. The emulation runs the same kernels on the same inputs and
+    a sum of two terms is exact, so ``equal_step`` holds the losses, the
+    reduced gradients and the BatchNorm statistics to it bit for bit
+    (``compare_step``, with the emulation's one-ulp runs in both directions
+    as its noise, only prints the diagnosis where they differ), and the
+    parameters must equal AdamW's on the emulation's gradients bit for bit.
+    Both ranks' states must agree bit for bit. Then a world-size-1 NCCL
+    group in this process: the same step on scene 0, equal bit for bit to
+    ``make_train_step``'s. ``pbs``: the two scenes' point batches. Returns
+    the ranks' stage times and launches."""
+    import torch
+    import torch.distributed as dist
+
+    from gapro_tpu_torch import cuda_build
+    from gapro_tpu_torch.losses.criterion import CriterionConfig
+    from gapro_tpu_torch.models import isbnet, prepare
+    from gapro_tpu_torch.parallel.mesh import (data_parallel_mesh, free_port, replicate,
+                                               spawn_ranks)
+    from gapro_tpu_torch.train import state, step
+
+    if dev.type == "cuda":
+        cuda_build.build_all()  # once, here: the ranks only load the libraries
+    crit = CriterionConfig(inst_cap=inst_cap)
+    packed = [prepare.pack_point_batch_np(pb) for pb in pbs]
+    bufs = [[packed[0], packed[1]], [packed[0], packed[0]]]
+    out_dir = os.path.join(str(cuda_build.BUILD_DIR), "chip_smoke_dp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_step_rank, 2, dev.type, cfg, bufs, shrink, inst_cap, out_dir,
+                        timeout_s=900.0)
+    print(f"{what}: two ranks on {ranks[0]['device']} and {ranks[1]['device']}, backend "
+          f"{ranks[0]['backend']}; spawn to exit {time.perf_counter() - t0:.1f} s", flush=True)
+
+    prepare_fn = prepare.packed_prepare(cfg.unet_levels, cfg.spp_cap, shrink)
+    prepared_of = lambda buf: prepare_fn(torch.from_numpy(buf).to(dev))
+
+    runs = {}  # (scene, assignment) -> its run
+    one = lambda p, assign: one_step_grads(isbnet.ISBNet(cfg, seed=0, device=dev), p, crit,
+                                           assign=torch.from_numpy(assign).to(dev))[0]
+
+    def scene_run(scene, assign):
+        key = (scene, assign.tobytes())
+        if key not in runs:
+            runs[key] = one(prepared_of(packed[scene]), assign)
+        return runs[key]
+
+    def noise_runs(scenes, assigns, w, dp_grads):
+        """The emulation's two one-ulp runs, for the diagnosis."""
+        out = [weighted_run([one(nudged(prepared_of(packed[sc]), d), a)
+                             for sc, a in zip(scenes, assigns)], w) for d in NUDGES]
+        zero_fill(dp_grads, [n[1] for n in out])
+        return out
+
+    def adamw(grads):
+        """The parameters after one AdamW step from seed 0 on ``grads``."""
+        model = isbnet.ISBNet(cfg, seed=0, device=dev)
+        st = state.create_train_state(model, lr=TRAIN_LR)
+        for k, p in model.named_parameters():
+            p.grad = None if grads[k] is None else grads[k].to(dev)
+        st.apply_gradients(lr=TRAIN_LR)
+        return {k: p.detach().cpu() for k, p in model.named_parameters()}
+
+    def same_params(got, want, label):
+        differ = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+        if differ:
+            fail(f"{label}: {len(differ)} parameters after AdamW differ bit for bit: "
+                 f"{differ[:8]}")
+
+    out = dict(ranks=ranks)
+    for i, w in enumerate(DP_WEIGHTS):
+        label = f"{what}, weights {list(w)}"
+        scenes = [0, 1] if i == 0 else [0, 0]
+        for r in (0, 1):
+            st = ranks[r]["steps"][i]
+            print(f"{label}, rank {r} (scene {scenes[r]}): {stage_line(st['ms'])}"
+                  + (" (the ranks' first step: cold)" if i == 0 else "")
+                  + f"; launches {st['launches']}", flush=True)
+        if ranks[0]["steps"][i]["digest"] != ranks[1]["steps"][i]["digest"]:
+            fail(f"{label}: the two ranks' weights, statistics and optimizer states differ")
+        real = [r for r in (0, 1) if w[r] > 0]
+        assigns = [ranks[r]["steps"][i]["assign"] for r in real]
+        ww = [w[r] for r in real]
+        emu = weighted_run([scene_run(scenes[r], a) for r, a in zip(real, assigns)], ww)
+        got = torch.load(os.path.join(out_dir, f"weights{i}.pt"), weights_only=False)
+        dp = (got["losses"], got["grads"], got["stats"])
+        zero_fill(dp[1], [emu[1]])
+        summary = equal_step(dp, emu, f"{label}, two ranks vs the emulation",
+                             lambda: noise_runs([scenes[r] for r in real], assigns, ww, dp[1]))
+        same_params(got["params"], adamw(emu[1]), label)
+        print(f"{label}: the two ranks against the emulation: {summary}; the parameters after "
+              f"AdamW equal AdamW's on the emulation's gradients bit for bit; both ranks equal "
+              f"bit for bit", flush=True)
+        del got, dp, emu
+    shutil.rmtree(out_dir)
+
+    # a world-size-1 NCCL group: the backend a run with a card a rank takes
+    group = data_parallel_mesh(1, 0, f"tcp://localhost:{free_port()}", dev.type)
+    try:
+        model = isbnet.ISBNet(cfg, seed=0, device=dev)
+        replicate(model, group)
+        st = state.create_train_state(model, lr=TRAIN_LR)
+        dp_step = step.make_dp_train_step(model, crit, group, prepare_fn=prepare_fn)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, losses = dp_step(st, torch.from_numpy(packed[0]).to(dev), TRAIN_LR, 1.0)
+        torch.cuda.synchronize()
+        nccl_ms = (time.perf_counter() - t0) * 1e3
+        out["nccl_launches"] = read_counts()
+        got = ({k: float(v) for k, v in losses.items()}, *grads_and_stats(model))
+        got_params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    finally:
+        dist.destroy_process_group()
+    single = isbnet.ISBNet(cfg, seed=0, device=dev)
+    sst = state.create_train_state(single, lr=TRAIN_LR)
+    sst, slosses = step.make_train_step(single, crit)(sst, prepared_of(packed[0]), TRAIN_LR)
+    want = ({k: float(v) for k, v in slosses.items()}, *grads_and_stats(single))
+    zero_fill(got[1], [want[1]])
+    label = f"{what}, NCCL world size 1 vs make_train_step"
+    summary = equal_step(got, want, label, lambda: noise_runs(
+        [0], [ranks[0]["steps"][0]["assign"]], [1.0], got[1]))
+    same_params(got_params, {k: p.detach().cpu() for k, p in single.named_parameters()}, label)
+    print(f"{what}: a world-size-1 group, backend {group.backend}: the step {nccl_ms:.1f} ms, "
+          f"launches {out['nccl_launches']}; against make_train_step: {summary}, and the "
+          f"parameters after AdamW", flush=True)
+    out["nccl_backend"], out["nccl_ms"] = group.backend, nccl_ms
+    return out
+
+
+def dp_trainer_phase(dev, work_dir: str) -> dict:
+    """``tools/train.py:train_dp`` with 2 ranks on one card (gloo) for one
+    epoch of DP_SCENES bench scenes with seeded GP labels, validation on
+    DP_VAL_SCENES scene by rank 0, then a resume from its checkpoint: every
+    rank's weights, statistics, optimizer state and step equal bit for bit
+    to rank 0's at the end of the epoch. Prints each rank's step times
+    (host clock; the two ranks share one card, so they are no speedup)."""
+    from gapro_tpu_torch.data.dataset import SyntheticDataset
+    from gapro_tpu_torch.tools import train as port_train
+
+    cfg = full_config()
+    vc = port_train.voxel_cfg(cfg)
+    train_ds = GPLabelled(SyntheticDataset(n_scenes=DP_SCENES, training=True, voxel_cfg=vc,
+                                           **FULL_SCENE))
+    val_ds = SyntheticDataset(n_scenes=DP_VAL_SCENES, training=False, voxel_cfg=vc, **FULL_SCENE)
+    t0 = time.perf_counter()
+    res = port_train.train_dp(cfg, work_dir, 2, device=dev, dataset=train_ds, val_dataset=val_ds,
+                              val_scenes=DP_VAL_SCENES, num_workers=DATA_WORKERS)
+    wall = time.perf_counter() - t0
+    rec = res["records"][-1]
+    for r in res["ranks"]:
+        print(f"--dp 2 trainer, rank {r['rank']} on {r['device']} ({r['backend']}): "
+              f"{len(r['step_s'])} steps of one scene, "
+              + ", ".join(f"{1e3 * s:.1f}" for s in r["step_s"]) + " ms (the first cold)",
+              flush=True)
+    print(f"--dp 2 trainer: one epoch of {DP_SCENES} scenes in {wall:.1f} s (spawn to exit); "
+          f"loss {rec['loss']:.4f}, lr {rec['lr']:.3g}; rank 0's validation on {DP_VAL_SCENES} "
+          f"scene: " + " ".join(f"{k} {v:.4f}" for k, v in rec.items() if k.startswith("val_")),
+          flush=True)
+    steps = {r["steps"] for r in res["ranks"]}
+    if steps != {DP_SCENES // 2} or len({r["digest"] for r in res["ranks"]}) != 1:
+        fail(f"--dp 2 trainer: steps {steps}, or the ranks' states differ")
+    if "val_ap" not in rec or not math.isfinite(rec["loss"]):
+        fail(f"--dp 2 trainer: no validation or a loss not finite: {rec}")
+    again = port_train.train_dp(cfg, work_dir, 2, device=dev, dataset=train_ds,
+                                skip_validate=True, resume=os.path.join(work_dir, "latest"))
+    digests = {r["digest"] for r in again["ranks"]}
+    if digests != {res["ranks"][0]["digest"]} or again["records"]:
+        fail("--dp 2 trainer: a resumed rank differs from the epoch's end")
+    latest = os.path.basename(os.path.realpath(os.path.join(work_dir, "latest")))
+    print(f"--dp 2 trainer: resumed from {latest} on both ranks, each equal bit for bit to "
+          f"rank 0 at the epoch's end (weights, BatchNorm statistics, optimizer state, step "
+          f"{DP_SCENES // 2})", flush=True)
+    return dict(step_s=[r["step_s"] for r in res["ranks"]], wall_s=wall, record=rec)
+
+
+def write_scannet(root: str, n: int) -> list:
+    """``n`` bench scenes in the layout ``ScanNetDataset`` and ``gen_ps``
+    read: ``train/<scan>_inst_nostuff.pth`` (xyz, rgb, raw semantics,
+    instances) and ``superpoints/<scan>.pth``; scene 0 also under ``val/``.
+    Returns the scan ids."""
+    import torch
+
+    from gapro_tpu_torch.data import make_synthetic_scene
+
+    scans = []
+    for sub in ("train", "val", "superpoints"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(n):
+        s = make_synthetic_scene(seed=i, **FULL_SCENE)
+        scan = f"scene{i:04d}_00"
+        rec = (s.xyz, s.rgb, s.semantic_label.astype(np.int64),
+               s.instance_label.astype(np.int64))
+        for sub in ("train", "val") if i == 0 else ("train",):
+            torch.save(rec, os.path.join(root, sub, scan + "_inst_nostuff.pth"))
+        torch.save(np.asarray(s.spp, np.int64), os.path.join(root, "superpoints", scan + ".pth"))
+        scans.append(scan)
+    return scans
+
+
+def selftrain_phase(dev, checkpoint: str, root: str) -> dict:
+    """GaPro's self-training loop at full width on SELFTRAIN_SCENES bench
+    scenes written in ScanNet's layout: ``export_features`` from the
+    trainer phase's weights, ``gen_ps --use_deepfeat`` on those files, one
+    epoch of the trainer on the labels it wrote (the config's batch 4 over
+    the scenes' repeat 4), and the test CLI with ``--save_pointwise`` on
+    one scene, its three directories checked for shape and dtype; each
+    stage timed, counts zeroed just before and read just after."""
+    import torch
+
+    from gapro_tpu_torch.data.scannet_io import load_pseudo_labels
+    from gapro_tpu_torch.tools import export_features, gen_ps
+    from gapro_tpu_torch.tools import test as port_test
+    from gapro_tpu_torch.tools import train as port_train
+
+    scans = write_scannet(root, SELFTRAIN_SCENES)
+    cfg = full_config()
+    cfg.data.update(data_root=root, prefix_val="train", label_type="gp_deepfeat_ps")
+    times, launches = {}, {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        launches[name] = read_counts()
+        return r
+
+    feats = os.path.join(root, "maskfeats")
+    written = stage("export_features", lambda: export_features.export_features(
+        cfg, checkpoint, feats, device=dev))
+    for scan, _, shape in written:
+        f = np.asarray(torch.load(os.path.join(feats, scan + ".pth"), weights_only=False))
+        if f.dtype != np.float32 or f.shape != shape or f.shape[1] != 32 or \
+                not np.isfinite(f).all():
+            fail(f"export_features {scan}: {f.dtype} {f.shape}, finite {np.isfinite(f).all()}")
+    ps = os.path.join(root, "gp_deepfeat_ps")
+    rc = stage("gen_ps --use_deepfeat", lambda: gen_ps.main([
+        "--data_root", root, "--split", "train", "--save_folder", ps, "--use_deepfeat",
+        "--deepfeat_folder", feats, "--device", str(dev)]))
+    if rc != 0 or sorted(os.listdir(ps)) != sorted(s + ".pth" for s in scans):
+        fail(f"gen_ps --use_deepfeat: rc {rc}, wrote {sorted(os.listdir(ps))}")
+    for scan in scans:
+        sem, inst, prob, mu, var = load_pseudo_labels(os.path.join(ps, scan + ".pth"))
+        if not (np.isfinite(mu).all() and np.isfinite(var).all() and (inst >= 0).any()):
+            fail(f"gen_ps --use_deepfeat {scan}: labels not finite or no instance")
+    work = os.path.join(root, "run")
+    res = stage("train, one epoch", lambda: port_train.train(
+        cfg, work, device=dev, skip_validate=True))
+    rec = res["records"][-1]
+    if not math.isfinite(rec["loss"]) or res["state"].step != 2:
+        fail(f"selftrain: training on the written labels: {rec}, step {res['state'].step}")
+    del res
+    test_cfg = full_config()
+    test_cfg.data.update(data_root=root, prefix_val="val")
+    pw = os.path.join(root, "pointwise")
+    stage("test --save_pointwise", lambda: port_test.run_test(
+        test_cfg, os.path.join(work, "latest"), device=dev, pointwise=pw))
+    n = len(torch.load(os.path.join(root, "val", scans[0] + "_inst_nostuff.pth"),
+                       weights_only=False)[0])
+    for sub, dtype, shape in (("semantic_pred", np.int32, (n,)),
+                              ("offset_pred", np.float32, (n, 3)),
+                              ("offset_vertices_pred", np.float32, (n, 6))):
+        a = np.load(os.path.join(pw, sub, scans[0] + ".npy"))
+        if a.dtype != dtype or a.shape != shape or not np.isfinite(a).all():
+            fail(f"--save_pointwise {sub}: {a.dtype} {a.shape} (want {dtype.__name__} {shape})")
+    print(f"selftrain, {SELFTRAIN_SCENES} bench scenes: "
+          + "; ".join(f"{k} {v:.1f} s, launches {launches[k]}" for k, v in times.items())
+          + f"; the epoch on the written labels: loss {rec['loss']:.4f} (kl_loss "
+          f"{rec['kl_loss']:.4f}); --save_pointwise: 3 dirs of {n} points", flush=True)
+    need = {"export_features": ("subm_conv", "fps"),
+            "train, one epoch": ("subm_conv", "subm_conv_dfeats", "subm_conv_dw", "fps", "dyco"),
+            "test --save_pointwise": ("subm_conv", "fps", "dyco")}
+    for name, kernels in need.items():
+        if any(launches[name][k] == 0 for k in kernels):
+            fail(f"selftrain, {name}: a kernel of the path never launched: {launches[name]}")
+    return dict(seconds=times, launches=launches)
+
+
 def main() -> None:
     import torch
 
@@ -3155,6 +3784,9 @@ def main() -> None:
                             dict(conv_need(cfg), fps=1, dyco=1), val_ds=val_ds,
                             pretrain=pretrain, resume=True)
     check_pretrain_load(pretrain, trainer["pretrain_load"])
+    # the trained weights that phase 18's self-training loop starts from
+    selftrain_ck = os.path.join(str(cuda_build.BUILD_DIR), "chip_smoke_selftrain_ck")
+    torch.save(dict(model=trainer["state"].model.state_dict()), selftrain_ck)
     shutil.rmtree(work_dir)
     shutil.rmtree(bb_dir)
 
@@ -3208,6 +3840,27 @@ def main() -> None:
     shutil.rmtree(s3_root, ignore_errors=True)
     s3 = s3dis_phase(dev, s3_root)
     shutil.rmtree(s3_root)
+    torch.cuda.empty_cache()
+
+    # ---- 16. the learning smoke: both models learn on the card -------------
+    learn = learn_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 17. data-parallel training: two gloo ranks on the card against the
+    # emulation, a world-size-1 NCCL group, then --dp 2 for an epoch --------
+    dp = dp_step_phase(dev, cfg, [scenes[0][1], scenes[1][1]], "DP step, full width")
+    dp_dir = os.path.join(str(cuda_build.BUILD_DIR), "chip_smoke_dp_train")
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    dp_trainer_phase(dev, dp_dir)
+    shutil.rmtree(dp_dir)
+    torch.cuda.empty_cache()
+
+    # ---- 18. self-training: export -> gen_ps --use_deepfeat -> train -> test
+    st_root = os.path.join(str(cuda_build.BUILD_DIR), "chip_smoke_selftrain")
+    shutil.rmtree(st_root, ignore_errors=True)
+    selftrain = selftrain_phase(dev, selftrain_ck, st_root)
+    shutil.rmtree(st_root)
+    os.unlink(selftrain_ck)
 
     tl, t4 = train_launches, trainer["launches"]
     s3t = s3["trainer"]["launches"]
@@ -3225,14 +3878,18 @@ def main() -> None:
                        s3dis_bound_ms=s3["k1"]["bound"], s3dis_fp64_rms_ratio=s3["k1"]["fp64"],
                        s3dis_fp64_drift_ulp=s3["k1"]["drift"],
                        fp64_drift_ulp=max(k1["drift"], spf["k1"]["drift"], s3["k1"]["drift"]),
-                       step_fp64_drift_ulp=max(step_drift, s3["step_drift"]))
+                       step_fp64_drift_ulp=max(step_drift["K1"], step_drift["dfeats"],
+                                               s3["step_drift"]["K1"], s3["step_drift"]["dfeats"]))
         if bwd:
             out.update(s3dis_b4_bwd_launches=s3t[bwd], s3dis_b4_bwd_ms=s3["conv_b4"]["dfeats"][0],
                        s3dis_b4_bwd_bound_ms=s3["conv_b4"]["dfeats"][1],
                        s3dis_b4_bwd_max_abs_err=s3["bwd_b4"][0]["err"])
         else:
             out.update(s3dis_b4_max_abs_err=s3["bwd_b4"][1]["err"],
-                       s3dis_b4_fp64_rms_ratio=s3["bwd_b4"][1]["fp64"])
+                       s3dis_b4_fp64_rms_ratio=s3["bwd_b4"][1]["fp64"],
+                       fp64_drift_ulp=max(dw_acc["drift"], spf["dw"]["drift"],
+                                          s3["bwd_b4"][1]["drift"]),
+                       step_fp64_drift_ulp=max(step_drift["dW"], s3["step_drift"]["dW"]))
         return out
     s3k4, s3k5 = s3["k4"], s3["k5"]
 
@@ -3263,6 +3920,37 @@ def main() -> None:
                        spformer_bwd_ms=spf["dfeats"]["ms"],
                        spformer_bwd_bound_ms=spf["dfeats"]["bound"])
         return out
+    dp_rank0 = dp["ranks"][0]["steps"][0]["launches"]
+    st_launches = selftrain["launches"]
+
+    def loop_paths(count):
+        """A kernel's launches on the paths of phases 16-18: the learning
+        smoke of each model (training and scoring), the DP step's rank 0
+        (weights [1, 1]) and the world-size-1 NCCL step, and the
+        self-training loop's export, epoch and test CLI."""
+        return dict(learn_isbnet_launches=learn["isbnet"]["launches"][count],
+                    learn_spformer_launches=learn["spformer"]["launches"][count],
+                    dp_rank0_launches=dp_rank0[count], dp_nccl_launches=dp["nccl_launches"][count],
+                    selftrain_export_launches=st_launches["export_features"][count],
+                    selftrain_train_launches=st_launches["train, one epoch"][count],
+                    selftrain_test_launches=st_launches["test --save_pointwise"][count])
+    lk = learn["kernels"]
+
+    def learn_shapes(kind):
+        """A kernel's numbers at the learning smoke's shapes
+        (``learn_kernel_phase``): the conv kernels summed over a forward
+        (K1) or a backward of each U-Net held there, K4 and K5 over the
+        cases of one step and one request."""
+        if kind in ("k1", "dfeats", "dw"):
+            keys = (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"),
+                    ("max_abs_err", "err"))
+            return {f"learn_{m}_{key}": lk[m][kind][src]
+                    for m in ("isbnet", "spformer") if m in lk for key, src in keys}
+        cases = lk[kind]
+        return dict(learn_ms=sum(c["ms"] for c in cases),
+                    learn_plain_ms=sum(c["plain_ms"] for c in cases),
+                    learn_bound_ms=sum(c.get("bound", c.get("bound_ms")) for c in cases),
+                    learn_max_abs_err=max(c.get("err", 0.0) for c in cases))
     req = [k5["shapes"][f"request round {i}"] for i in (1, 2, 3)]
     k5_req = dict(err=k5["err"], **{key: sum(r[key] for r in req)
                                     for key in ("ms", "device_ms", "plain_ms", "bytes_ms",
@@ -3281,13 +3969,17 @@ def main() -> None:
                   bwd_tflops=dfeats_acc["flops"] / dfeats_acc["ms"] / 1e9,
                   train_b4_launches=t4["subm_conv"], train_b4_bwd_launches=t4["subm_conv_dfeats"],
                   **new_paths("K1", "subm_conv", "k1", "subm_conv_dfeats"),
-                  **s3dis_conv("K1", "subm_conv", "subm_conv_dfeats"),
+                  **s3dis_conv("K1", "subm_conv", "subm_conv_dfeats"), **loop_paths("subm_conv"),
+                  **{f"{k}_bwd": v for k, v in loop_paths("subm_conv_dfeats").items()},
+                  **learn_shapes("k1"),
+                  **{f"{k}_bwd": v for k, v in learn_shapes("dfeats").items()},
                   **conv_extra(k1, sass.get("subm_conv")))),
             ("subm_conv_dw", "gapro_tpu_torch/csrc/subm_conv_dw.cu",
              "gapro_tpu/sparse/window_conv.py:404, gapro_tpu/sparse/window_conv.py:366", dw_acc,
              tl["subm_conv_dw"], dict(train_b4_launches=t4["subm_conv_dw"],
                                       **new_paths("dW", "subm_conv_dw", "dw"),
                                       **s3dis_conv("dW", "subm_conv_dw"),
+                                      **loop_paths("subm_conv_dw"), **learn_shapes("dw"),
                                       **conv_extra(dw_acc, sass.get("subm_conv_dw")))),
             ("fps", "gapro_tpu_torch/csrc/fps.cu", "gapro_tpu/ops/fps_pallas.py:42", k4,
              launches["fps"], dict(train_launches=tl["fps"], train_b4_launches=t4["fps"],
@@ -3308,7 +4000,8 @@ def main() -> None:
                                    s3dis_merged_ms=s3k4["ms"],
                                    s3dis_merged_kernel_alone_ms=s3k4["kernel_ms"],
                                    s3dis_merged_plain_ms=s3k4["plain_ms"],
-                                   s3dis_merged_bound_ms=s3k4["bound"],
+                                   s3dis_merged_bound_ms=s3k4["bound"], **loop_paths("fps"),
+                                   **learn_shapes("k4"),
                                    sass=sass.get("fps"))),
             ("dyco", "gapro_tpu_torch/csrc/dyco.cu", "gapro_tpu/models/dyco.py:100", k5_req,
              launches["dyco"],
@@ -3325,7 +4018,8 @@ def main() -> None:
                   s3dis_request_ms=sum(r["ms"] for r in s3k5),
                   s3dis_request_device_ms=sum(r["device_ms"] for r in s3k5),
                   s3dis_request_plain_ms=sum(r["plain_ms"] for r in s3k5),
-                  s3dis_request_bound_ms=sum(r["bound_ms"] for r in s3k5),
+                  s3dis_request_bound_ms=sum(r["bound_ms"] for r in s3k5), **loop_paths("dyco"),
+                  **learn_shapes("k5"),
                   sass=sass.get("dyco")))):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, launches=n,

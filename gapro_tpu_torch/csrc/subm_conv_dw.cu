@@ -44,8 +44,11 @@
 // kept in the mma accumulator (up to about 700 accumulating mmas) drifted
 // towards zero, many times further from fp64 than the plain fp32 version
 // (PERF.md §6). So each k-step's three mmas (8 pairs) start from a zero
-// accumulator, and the k-step sums are added in fp32 on the CUDA cores
-// (round to nearest), in pair order.
+// accumulator, each k-step's sum gets back the half ulp its truncation
+// takes on average (untruncate, conv_common.cuh, as in K1: without it dW read
+// -0.03 to -0.05 ulp along the output's sign against fp64 on random inputs
+// and down to -0.08 on a training step's own), and the k-step sums are
+// added in fp32 on the CUDA cores (round to nearest), in pair order.
 //
 // The levels with many rows and few channels have too few (tile, k) pairs
 // to fill 132 SMs, so each list is split into ranges of `per` pairs over
@@ -70,28 +73,7 @@ constexpr int BUSY_PER_SM = 6;
 constexpr int FILL_DIV = 5;
 constexpr int MIN_PER = 8 * P;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
+#include "conv_common.cuh"
 
 // d[16 x 8] += a[16 x 8] * b[8 x 8], TF32 in, fp32 sum
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -185,7 +167,7 @@ subm_conv_dw_kernel(const float* __restrict__ feats, const float* __restrict__ d
         split_tf32(Bs[s][kk + t4 + 4][n], bhi[b][1], blo[b][1]);
       }
       // this k-step's products start from zero on the tensor cores, and
-      // are added to the running sum in fp32 on the CUDA cores
+      // are added, untruncated, to the running sum in fp32 on the CUDA cores
 #pragma unroll
       for (int a = 0; a < MT; ++a)
 #pragma unroll
@@ -195,7 +177,8 @@ subm_conv_dw_kernel(const float* __restrict__ feats, const float* __restrict__ d
           mma_tf32(part, ahi[a], blo[b]);
           mma_tf32(part, ahi[a], bhi[b]);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[a][b][e] = __fadd_rn(acc[a][b][e], part[e]);
+          for (int e = 0; e < 4; ++e)
+            acc[a][b][e] = __fadd_rn(acc[a][b][e], untruncate(part[e]));
         }
     }
   }

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exports plain C functions and is compiled on first
 use, never at import, by ``nvcc`` for ``sm_90a`` into
 ``gapro_tpu_torch/_build/lib<name>.so``. A library is rebuilt when its
-source is newer than the shared object. ``build_all`` starts one ``nvcc``
+source, or a header of ``csrc/`` (``*.cuh``), is newer than the shared
+object. ``build_all`` starts one ``nvcc``
 per source at once, so a cold start costs the slowest build, not the sum.
 """
 
@@ -45,7 +46,8 @@ def _target(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     so = _target(name)
-    return not so.exists() or so.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    newest = max(p.stat().st_mtime for p in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    return not so.exists() or so.stat().st_mtime < newest
 
 
 def _start(name: str):

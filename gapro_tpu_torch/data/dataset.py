@@ -11,13 +11,17 @@
 * ``build_dataloader``: shuffles, applies ``transform_train`` /
   ``transform_test`` and collates with ``models/prepare.py:
   points_to_batch_np`` into bucketed point batches.
+* ``build_rank_loader``: one data-parallel rank's scene of each of
+  ``build_dataloader``'s training batches, loading only that scene.
 
 Scene ``i`` of epoch ``e`` draws its augmentation from its own generator,
 seeded from (seed, e, i), so the batches do not depend on the number of
-workers or on the order in which they finish. The workers are forked and
-do numpy and scipy work only (load and augment): the parent may already
-hold a CUDA context, which a forked child must never touch, so the collate
-and everything after it runs in the parent.
+workers or on the order in which they finish. ``build_dataloader``'s
+workers are forked and do numpy and scipy work only (load and augment):
+the parent may already hold a CUDA context, which a forked child must
+never touch, so the collate and everything after it runs in the parent.
+``build_rank_loader``'s workers are spawned: a rank holds a CUDA context
+and forks nothing from it.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from __future__ import annotations
 import os.path as osp
 from dataclasses import dataclass
 from glob import glob
-from typing import Iterator, List, Tuple
+from typing import Callable, Iterator, List, Tuple
 
 import numpy as np
 
@@ -258,3 +262,80 @@ def build_dataloader(dataset, batch_size=4, training=True, seed=0, drop_last=Tru
                 yield fut.result()
 
         yield from emit(results())
+
+
+def build_rank_loader(dataset, world_size: int, rank: int, exchange: Callable[[int], List[int]],
+                      seed=0, epoch=0, drop_last=True,
+                      num_workers=0) -> Iterator[Tuple[dict, int, float]]:
+    """One data-parallel rank's share of ``build_dataloader(dataset,
+    world_size, training=True, seed=seed, drop_last=drop_last,
+    epoch=epoch)``: the same batches, one scene a rank, of which this rank
+    loads and yields only its own, scene ``rank`` of each batch. Yields
+    (the scene, the point count of the batch's largest scene, so that the
+    ranks pack at one capacity, the scene's reduction weight): the weight
+    is 1, or 0 where a short last batch of n scenes (kept only without
+    ``drop_last``) gives the rank scene ``rank % n`` as a filler.
+
+    ``exchange(n)`` is an all-gather that every rank calls at the same
+    points: it takes the point count of the scene this rank loaded (-1 for
+    one the crop skipped, or past the epoch's end) and returns every
+    rank's, by rank. The ranks walk the epoch's order together, rank r
+    loading the scene at ``cursor + r`` each round, until the scenes the
+    crop kept fill the batch. A rank whose scene of the batch another rank
+    loaded (after a skip) loads it again: each scene draws its augmentation
+    from its own generator, so both loads are equal.
+
+    ``num_workers > 0`` loads in that many spawned processes, this rank's
+    scenes up to ``max(num_workers, _PREFETCH_BATCHES)`` batches ahead
+    (where no scene is skipped)."""
+    import contextlib
+
+    rng = np.random.default_rng(seed + epoch)
+    order = np.arange(len(dataset))
+    rng.shuffle(order)
+    vc = dataset.voxel_cfg
+    window = max(num_workers, _PREFETCH_BATCHES)
+    ahead: dict = {}  # position in ``order`` -> the future of its scene
+    with contextlib.ExitStack() as stack:
+        pool = None
+        if num_workers > 0:
+            import multiprocessing as mp
+            from concurrent.futures import ProcessPoolExecutor
+
+            pool = stack.enter_context(ProcessPoolExecutor(
+                max_workers=num_workers, mp_context=mp.get_context("spawn"),
+                initializer=_worker_init, initargs=(dataset, True, vc, seed, epoch)))
+
+        def load(pos):
+            fut = ahead.pop(pos, None)
+            if fut is not None:
+                return fut.result()
+            return _prep_scene(dataset, True, vc, seed, epoch, order[pos])
+
+        def prefetch(cursor):
+            for pos in [p for p in ahead if p < cursor]:
+                ahead.pop(pos).cancel()
+            for k in range(window):
+                pos = cursor + k * world_size + rank
+                if pool is not None and pos < len(order) and pos not in ahead:
+                    ahead[pos] = pool.submit(_worker_prep, int(order[pos]))
+
+        cursor = 0
+        while cursor < len(order):
+            members, mine = [], {}  # the batch's (position, point count); this rank's loads
+            while len(members) < world_size and cursor < len(order):
+                prefetch(cursor)
+                pos = cursor + rank
+                scene = load(pos) if pos < len(order) else None
+                if scene is not None:
+                    mine[pos] = scene
+                for r, n in enumerate(exchange(-1 if scene is None else len(scene["xyz"]))):
+                    if n >= 0 and len(members) < world_size:
+                        members.append((cursor + r, n))
+                # the next batch starts after this one's last scene
+                cursor = members[-1][0] + 1 if len(members) == world_size else cursor + world_size
+            if not members or (drop_last and len(members) < world_size):
+                return
+            pos = members[rank % len(members)][0]
+            scene = mine[pos] if pos in mine else load(pos)
+            yield scene, max(n for _, n in members), 1.0 if rank < len(members) else 0.0

@@ -3,12 +3,14 @@
 ``points_to_batch_np`` is the host collate (numpy). ``prepare_voxel_batch``
 runs on the device: voxelize by sort + unique, mean-pool features, take
 labels from the first point, compact superpoint ids and build the U-Net
-plan.
+plan. ``pack_point_batch_np`` / ``unpack_point_batch`` carry one scene in
+one [N, 17] buffer, the data-parallel step's input, and ``packed_prepare``
+is that step's ``prepare_fn``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -114,6 +116,38 @@ def upload_point_batch(pb: PointBatch, device=None) -> PointBatch:
     return PointBatch(*(torch.as_tensor(np.asarray(a)).to(dev) for a in pb))
 
 
+# One [N, 17] float32 buffer carries a whole PointBatch exactly (integers
+# below 2^24 and the -100 sentinels are exact in fp32): the data-parallel
+# step's input, one scene a rank.
+_PACK_COLS = 17
+
+
+def pack_point_batch_np(pb: PointBatch) -> np.ndarray:
+    """Host: a numpy PointBatch -> one [N, 17] float32 buffer."""
+    buf = np.empty((pb.coords.shape[0], _PACK_COLS), np.float32)
+    buf[:, 0:4] = pb.coords
+    buf[:, 4:7] = pb.coords_float
+    buf[:, 7:10] = pb.feats
+    buf[:, 10] = pb.spp
+    buf[:, 11] = pb.valid
+    buf[:, 12] = pb.semantic
+    buf[:, 13] = pb.instance
+    buf[:, 14] = pb.prob
+    buf[:, 15] = pb.mu
+    buf[:, 16] = pb.var
+    return buf
+
+
+def unpack_point_batch(buf: torch.Tensor) -> PointBatch:
+    """An [N, 17] buffer -> PointBatch on the buffer's device."""
+    return PointBatch(
+        coords=buf[:, 0:4].to(torch.int32), coords_float=buf[:, 4:7].contiguous(),
+        feats=buf[:, 7:10].contiguous(),
+        spp=buf[:, 10].to(torch.int32), valid=buf[:, 11] > 0.5,
+        semantic=buf[:, 12].to(torch.int32), instance=buf[:, 13].to(torch.int32),
+        prob=buf[:, 14], mu=buf[:, 15], var=buf[:, 16])
+
+
 def prepare_voxel_batch(pb: PointBatch, voxel_cap: int, batch_size: int,
                         num_levels: int = 7, spp_cap: int = 8192,
                         shrink=0.5) -> PreparedBatch:
@@ -140,3 +174,11 @@ def prepare_voxel_batch(pb: PointBatch, voxel_cap: int, batch_size: int,
         voxel_semantic=label(pb.semantic), voxel_instance=label(pb.instance),
         voxel_prob=voxel_gather_first(pb.prob, maps), voxel_mu=voxel_gather_first(pb.mu, maps),
         voxel_var=voxel_gather_first(pb.var, maps), voxel_rgb=rgb)
+
+
+def packed_prepare(num_levels: int, spp_cap: int, shrink) -> Callable:
+    """The data-parallel step's ``prepare_fn``: one scene's packed [N, 17]
+    buffer (``pack_point_batch_np``) -> its ``PreparedBatch``, where the
+    buffer lies, with the buffer's length as the voxel capacity, batch 1."""
+    return lambda buf: prepare_voxel_batch(unpack_point_batch(buf), buf.shape[0], 1, num_levels,
+                                           spp_cap, shrink)

@@ -17,7 +17,8 @@ mCov, mWCov, mPrec and mRec follow (``S3DISEval``); with the test
 section's ``x4_split`` an ISBNet serves each room as 4 interleaved pieces
 (``S3DISDataset.split_pieces``) in one batch, and each mask is put back
 into the room's point order. Without a checkpoint the weights are drawn
-from ``--seed``. ``--save_pointwise`` is not ported yet.
+from ``--seed``. ``--save_pointwise DIR`` (ISBNet) writes each scene's
+point-wise heads as the reference's viewers read them (``save_pointwise``).
 """
 
 from __future__ import annotations
@@ -48,10 +49,12 @@ from .train import build_dataset, build_model, make_prepare
 @torch.no_grad()
 def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 0,
              synthetic: int = 0, dataset=None, out: Optional[str] = None, evaluate: bool = True,
-             model=None) -> dict:
+             model=None, pointwise: Optional[str] = None) -> dict:
     """Serve and score the config's test split (or ``dataset``) on one
     device (``cuda`` unless named). ``model`` replaces the one built from
-    the config and ``checkpoint``. Returns the per-scene seconds, the
+    the config and ``checkpoint``; ``pointwise``, a directory, receives an
+    ISBNet's point-wise heads of each scene (``save_pointwise``). Returns
+    the per-scene seconds, the
     instance records and, with ``evaluate``, the AP dict (``result``), for
     SPFormer the box AP dict (``box_result``) and on S3DIS the dict of
     mCov, mWCov, mPrec and mRec (``s3dis_result``)."""
@@ -77,16 +80,23 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
+        perm = None
         if x4:
-            insts = serve_room(model, cfg, scene, prepare, dataset.voxel_cfg.scale, scan_id)[2]
+            prepared, outputs, insts = serve_room(model, cfg, scene, prepare,
+                                                  dataset.voxel_cfg.scale, scan_id)
         else:
             prepared = prepare(lb.points, 1)
-            insts = infer_scene_instances(model_type, infer(prepared.batch), prepared.batch,
-                                          scene["spp"], prepared.point2voxel, n_points, scan_id,
+            outputs = infer(prepared.batch)
+            insts = infer_scene_instances(model_type, outputs, prepared.batch, scene["spp"],
+                                          prepared.point2voxel, n_points, scan_id,
                                           cfg.get("test", {}))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
+        if pointwise and model_type == "isbnet":
+            if x4:
+                perm = split_room(scene, dataset.voxel_cfg.scale)[2]
+            save_pointwise(pointwise, scan_id, outputs, prepared.point2voxel, n_points, perm)
         log.info("%s: %d pts, %d instances, %.3fs", scan_id, n_points, len(insts), times[-1])
         all_preds.append(insts)
         all_sems.append(scene["semantic"])
@@ -160,6 +170,29 @@ def to_room_order(instances, perm) -> None:
         inst["pred_mask"] = rle_encode(rle_decode(inst["pred_mask"])[inv])
 
 
+def save_pointwise(out_dir: str, scan_id: str, outputs, point2voxel, n_points: int,
+                   perm=None) -> None:
+    """One scene's point-wise heads in the layout of the reference's viewers
+    (``prediction_path``): ``semantic_pred/<scan>.npy`` (int32 class per
+    point), ``offset_pred/<scan>.npy`` (float32 [n, 3], the centre of the
+    predicted box) and ``offset_vertices_pred/<scan>.npy`` (float32 [n, 6],
+    the box's corner offsets), each point taking its voxel's. ``perm`` (the
+    x4_split path: the room's index of each point of the pieces) puts the
+    points back into the room's order."""
+    p2v = point2voxel[:n_points].long()
+    sem = outputs["semantic_scores"].argmax(1)[p2v].cpu().numpy().astype(np.int32)
+    corners = outputs["corners_offset"][p2v].cpu().numpy().astype(np.float32)
+    if perm is not None:
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+        sem, corners = sem[inv], corners[inv]
+    for sub, arr in (("semantic_pred", sem),
+                     ("offset_pred", ((corners[:, :3] + corners[:, 3:]) / 2).astype(np.float32)),
+                     ("offset_vertices_pred", corners)):
+        os.makedirs(osp.join(out_dir, sub), exist_ok=True)
+        np.save(osp.join(out_dir, sub, scan_id + ".npy"), arr)
+
+
 def export_benchmark(out_dir: str, scan_id: str, instances, n_points: int) -> None:
     """The ScanNet benchmark's submission format: ``<scan>.txt`` with one
     line ``pred_mask/<scan>_<i>.txt label conf`` per instance, and each
@@ -181,6 +214,9 @@ def main(argv=None) -> None:
     ap.add_argument("checkpoint", nargs="?", default=None)
     ap.add_argument("--synthetic", type=int, default=0)
     ap.add_argument("--out", default=None, help="benchmark-format export dir")
+    ap.add_argument("--save_pointwise", default=None,
+                    help="write per-point semantic_pred/, offset_pred/ and "
+                         "offset_vertices_pred/ .npy files (ISBNet) into this directory")
     ap.add_argument("--no_eval", action="store_true")
     ap.add_argument("--seed", type=int, default=0,
                     help="weights drawn from this seed when no checkpoint is given")
@@ -189,7 +225,8 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     cfg = load_config(args.config)
     res = run_test(cfg, args.checkpoint, device=args.device, seed=args.seed,
-                   synthetic=args.synthetic, out=args.out, evaluate=not args.no_eval)
+                   synthetic=args.synthetic, out=args.out, evaluate=not args.no_eval,
+                   pointwise=args.save_pointwise)
     if res["result"] is not None:
         print(json.dumps({k: v for k, v in res["result"].items() if k != "classes"}))
     if res["box_result"] is not None:

@@ -3,7 +3,8 @@
 
 AdamW with lr 1e-3 and weight decay 1e-4 (``configs/isbnet_scannetv2.yaml``),
 beta 0.9 / 0.999 and eps 1e-8: ``torch.optim.AdamW`` makes the update of
-``optax.adamw``, weight decay on every trained parameter included. The
+``optax.adamw``, weight decay on every trained parameter included (one the
+loss did not reach takes a zero gradient, as ``jax.grad`` gives). The
 learning rate is set on the parameter groups before each update, as
 ``optax.inject_hyperparams`` feeds it in the JAX package. Frozen modules
 (``fixed_modules``) are left out of the optimizer, which is what the JAX
@@ -52,10 +53,17 @@ class TrainState:
 
     def apply_gradients(self, lr=None) -> "TrainState":
         """One AdamW update from the gradients held in the parameters'
-        ``.grad``; ``lr`` replaces the learning rate first."""
-        if lr is not None:
-            for group in self.optimizer.param_groups:
+        ``.grad``; ``lr`` replaces the learning rate first. A trained
+        parameter the loss did not reach (``.grad`` None) takes a zero
+        gradient, as ``jax.grad`` gives it: AdamW then decays it as
+        ``optax.adamw`` does, and every rank of a data-parallel step (which
+        sums a gradient for every parameter) makes the same update."""
+        for group in self.optimizer.param_groups:
+            if lr is not None:
                 group["lr"] = float(lr)
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         self.optimizer.step()
         self.step += 1
         return self

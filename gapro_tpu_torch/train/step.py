@@ -9,12 +9,16 @@ criterion, the backward (the sparse convs' through
 the corner-offset labels alone and nothing is matched.
 ``make_spformer_train_step`` is the same for SPFormer, whose targets pool
 the labels at point resolution (``vox_weights``) and by the model's
-``pool``. The data-parallel step is not ported yet.
+``pool``. ``make_dp_train_step`` is the data-parallel step, one scene a
+rank: each rank's gradients, BatchNorm statistics and losses are reduced
+over the group before the same AdamW update on every rank.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
+
+import torch
 
 from ..losses.criterion import (CriterionConfig, PointwiseTargets, build_targets,
                                 corner_labels_only, isbnet_loss, match)
@@ -112,3 +116,63 @@ def make_spformer_train_step(model, crit_cfg,
     (``model.cfg.fixed_modules``) run in eval mode with their output
     detached, and ``train/state.py`` leaves them out of the optimizer."""
     return _make_step(_spformer_loss_fn, model, crit_cfg, on_stage)
+
+
+def make_dp_train_step(model, crit_cfg, group, loss_fn=_loss_fn,
+                       prepare_fn: Optional[Callable] = None,
+                       on_stage: Optional[Callable[[str], None]] = None) -> Callable:
+    """The data-parallel step of ``gapro_tpu/train/step.py``, one scene a
+    rank of ``group`` (``parallel/mesh.py:DataParallelGroup``):
+    ``step(state, shard, lr, weight=1.0) -> (state, losses)``.
+
+    Each rank runs ``loss_fn`` (``_loss_fn``, or ``_spformer_loss_fn``) and
+    its backward on its own scene, matching included. Then the gradients of
+    the optimizer's parameters, every floating-point buffer (the BatchNorm
+    running statistics as the forward left them) and the losses are each
+    reduced as ``sum(w * x) / max(sum(w), 1e-6)`` over the ranks, in one
+    sum of one flat buffer; ``weight`` is 1 for a real scene and 0 for a
+    filler that only keeps the group's shape. Every rank then makes the
+    same AdamW update from the reduced gradients (frozen modules are not in
+    the optimizer, as in ``make_train_step``). ``prepare_fn``, if given,
+    turns ``shard`` (the packed [N, 17] buffer of ``models/prepare.py:
+    pack_point_batch_np``) into the rank's prepared batch, so each rank
+    voxelizes and plans its own scene. ``on_stage`` is called as in
+    ``make_train_step``, with ``prepare`` first where ``prepare_fn`` is
+    given and ``reduce`` after ``backward``."""
+    mark = on_stage or _no_mark
+
+    def step(state, shard, lr, weight=1.0):
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        prepared = shard
+        if prepare_fn is not None:
+            prepared = prepare_fn(shard)
+            mark("prepare")
+        loss, (losses, _) = loss_fn(model, prepared, crit_cfg, mark=mark)
+        loss.backward()
+        mark("backward")
+        params = [p for g in state.optimizer.param_groups for p in g["params"]]
+        stats = [b for b in model.buffers() if b.is_floating_point()]
+        keys = sorted(losses)
+        w = torch.tensor([float(weight)], device=group.device)
+        flat = torch.cat(
+            [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in params]
+            + [b.reshape(-1) for b in stats]
+            + [torch.stack([losses[k].detach().float().reshape(()) for k in keys])]) * w
+        flat = group.all_reduce_sum(torch.cat([flat, w]))
+        flat = flat[:-1] / flat[-1:].clamp(min=1e-6)
+        at = 0
+        with torch.no_grad():
+            for p in params:
+                p.grad = flat[at:at + p.numel()].view_as(p)
+                at += p.numel()
+            for b in stats:
+                b.copy_(flat[at:at + b.numel()].view_as(b))
+                at += b.numel()
+        reduced = {k: flat[at + i] for i, k in enumerate(keys)}
+        mark("reduce")
+        state = state.apply_gradients(lr=lr)
+        mark("optimizer")
+        return state, reduced
+
+    return step

@@ -101,3 +101,70 @@ def test_dataloader_matches_jax(num_workers, training):
             np.testing.assert_array_equal(a, b, err_msg=name)
         for a, b in zip(g.scenes, w.scenes):
             _assert_scenes_equal(a, b)
+
+
+class _Skipping:
+    """``mod``'s synthetic dataset with the scenes ``small`` cut to 50
+    points, too few for the crop (``min_npoint`` 100): the loaders skip
+    them."""
+
+    def __init__(self, mod, small):
+        self.inner = mod.SyntheticDataset(
+            n_scenes=7, training=True,
+            voxel_cfg=mod.VoxelCfg(scale=20, max_npoint=2500, min_npoint=100), **SMALL)
+        self.voxel_cfg, self.small = self.inner.voxel_cfg, small
+
+    def __len__(self):
+        return len(self.inner)
+
+    def load(self, index):
+        s = self.inner.load(index)
+        if index in self.small:
+            s = {k: v[:50] if isinstance(v, np.ndarray) else v for k, v in s.items()}
+        return s
+
+
+def _rank_loads(ds, world, drop_last, num_workers):
+    """Every rank's list of ``build_rank_loader`` items, the ranks run as
+    threads whose ``exchange`` all-gathers through a barrier."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    slots, barrier = [None] * world, threading.Barrier(world, timeout=120)
+
+    def run(rank):
+        def exchange(n):
+            slots[rank] = n
+            barrier.wait()
+            got = list(slots)
+            barrier.wait()
+            return got
+
+        return list(dataset.build_rank_loader(ds, world, rank, exchange, seed=3, epoch=1,
+                                              drop_last=drop_last, num_workers=num_workers))
+
+    with ThreadPoolExecutor(world) as pool:
+        return [f.result() for f in [pool.submit(run, r) for r in range(world)]]
+
+
+@pytest.mark.parametrize("world,small,drop_last,num_workers", [
+    (2, (), True, 0), (2, (1, 4), True, 0), (3, (0, 2, 3), True, 0), (3, (0, 2, 3), False, 0),
+    (2, (), True, 1)])
+def test_rank_loader_matches_jax_world_batches(world, small, drop_last, num_workers):
+    """Each data-parallel rank, loading only its own scene, gets scene
+    ``rank`` of each of the JAX package's loader batches of ``world``
+    scenes (the train CLI's ``--dp`` batches), with skipped scenes, a
+    short last batch's filler (scene ``rank % n``, weight 0) and a spawned
+    worker; and the batch's largest point count, which sets the capacity."""
+    got = _rank_loads(_Skipping(dataset, set(small)), world, drop_last, num_workers)
+    want = list(jax_dataset.build_dataloader(_Skipping(jax_dataset, set(small)), world,
+                                             training=True, seed=3, epoch=1,
+                                             drop_last=drop_last))
+    assert len(want) >= 1 and (drop_last or len(want[-1].scenes) < world)
+    for rank in range(world):
+        assert len(got[rank]) == len(want)
+        for (scene, n_max, weight), w in zip(got[rank], want):
+            n = len(w.scenes)
+            _assert_scenes_equal(scene, w.scenes[rank % n])
+            assert n_max == max(len(s["xyz"]) for s in w.scenes)
+            assert weight == (1.0 if rank < n else 0.0)

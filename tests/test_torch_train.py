@@ -161,6 +161,24 @@ def test_frozen_modules_match_jax(trained_frozen):
     assert ("batch_stats", "point_aggregator1") in moved
 
 
+def test_unreached_parameters_decay_as_optax(trained):
+    """A parameter the loss does not reach (its JAX gradient all zeros: the
+    point-wise heads under the full-stage loss) has no ``.grad`` in the
+    port; ``apply_gradients`` gives it a zero gradient, so AdamW decays it
+    as ``optax.adamw`` does from ``jax.grad``'s zeros."""
+    jst = jax_state.create_train_state(trained["variables"], lr=1e-3)
+    jst = jst.apply_gradients(jax.tree_util.tree_map(jnp.asarray, trained["jgrads"]),
+                              lr=jnp.float32(1e-3))
+    want = dict(_leaves(_np_tree(jst.params)))
+    got = dict(_leaves(convert.to_flax_variables(trained["tmodel"])["params"]))
+    before = dict(_leaves(trained["variables"]["params"]))
+    unreached = [k for k, g in _leaves(trained["jgrads"]) if not g.any()]
+    assert unreached
+    for k in unreached:
+        assert not np.array_equal(want[k], before[k]), k  # optax moved it
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-9, err_msg=k)
+
+
 @pytest.mark.parametrize("fixed_modules", [(), FROZEN])
 def test_adamw_matches_optax(trained, fixed_modules):
     """Three updates fed the same gradients, each with its own injected

@@ -2,8 +2,8 @@
 on the tiny synthetic configurations: what the train CLI writes, exact
 resumption, the checkpoints' retention and partial loads, the test CLI's
 AP line, ISBNet's two stages (``--only_backbone``, then ``--pretrain``),
-SPFormer's train and test CLIs with box AP, the option still unported,
-and the full-width configurations ``chip_smoke.py`` builds in code (the
+SPFormer's train and test CLIs with box AP, ``--dp`` (no option of the
+JAX CLI raises now), and the full-width configurations ``chip_smoke.py`` builds in code (the
 card's machine has no PyYAML) against their YAML."""
 
 import json
@@ -29,9 +29,21 @@ TINY_SPF = osp.join(ROOT, "configs", "tiny_spformer_synthetic.yaml")
 SMALL = dict(n_objects=3, points_per_object=300, n_floor=400, n_wall=300)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """The port's CPU work here on two threads (and two in each CLI process,
+    ``_cli``): the test workers share the machine's cores, and torch's
+    default of one thread a core each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cli(module, *args):
     r = subprocess.run([sys.executable, "-m", f"gapro_tpu_torch.tools.{module}", *args],
-                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+                       cwd=ROOT, capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, OMP_NUM_THREADS="2"))
     assert r.returncode == 0, r.stderr[-3000:]
     return r
 
@@ -137,11 +149,17 @@ def test_retention_and_partial_load(tmp_path):
 
 
 @pytest.mark.parametrize("option", ["dp"])
-def test_unported_options_raise(option):
-    """What is still unported raises: data parallelism (``--dp``)."""
-    run = {"dp": lambda: port_train.main([TINY, "--dp", "2", "--device", "cpu"])}[option]
-    with pytest.raises(NotImplementedError):
-        run()
+def test_unported_options_raise(option, tmp_path, monkeypatch):
+    """Every option of the JAX CLI is ported and none raises
+    ``NotImplementedError``: ``--dp 2`` hands the run to the data-parallel
+    trainer with 2 ranks (``tests/test_torch_dp.py`` runs it, and holds its
+    step and the CLI's rules)."""
+    calls = []
+    monkeypatch.setattr(port_train, "train_dp", lambda cfg, work_dir, dp, **kw: calls.append(
+        (dp, kw["device"], kw["synthetic"])))
+    port_train.main([TINY, "--dp", "2", "--synthetic", "2", "--device", "cpu", "--work_dir",
+                     str(tmp_path / option)])
+    assert calls == [(2, "cpu", 2)]
 
 
 @pytest.fixture(scope="module")

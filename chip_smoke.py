@@ -1046,7 +1046,7 @@ def grads_and_stats(model) -> tuple:
 
 
 def compare_step(got: tuple, want: tuple, rtols: tuple, what: str, noise=None,
-                 want_noise=None, admit_outliers: bool = False) -> str:
+                 want_noise=None, admit_outliers: bool = False, diagnose: bool = False) -> str:
     """Losses, gradients and BatchNorm statistics of one step, each within
     its tolerance in ``rtols`` (losses, gradients, statistics). ``noise``,
     two more runs of ``got``'s path on inputs one ulp away from zero and one
@@ -1061,8 +1061,9 @@ def compare_step(got: tuple, want: tuple, rtols: tuple, what: str, noise=None,
     the leaf past the tolerance, and ``got`` lies within the tolerance of
     that run. Both readings are printed; with ``admit_outliers`` the gate
     holds those leaves against that run of ``want``'s path instead of
-    ``want``, and every other leaf as before. Returns a summary of the
-    agreement."""
+    ``want``, and every other leaf as before. With ``diagnose`` a
+    disagreement is printed, not failed: another gate holds the step.
+    Returns a summary of the agreement."""
     import torch
 
     (lg, gg, sg), (lw, gw, sw) = got, want
@@ -1152,9 +1153,14 @@ def compare_step(got: tuple, want: tuple, rtols: tuple, what: str, noise=None,
                    f"{noise_over}), the largest at {gate[0][0]:.3g} of it ({gate[0][2]}; "
                    f"bound {bound:.3g})")
     if bad:
-        fail(f"{what}: " + "; ".join(bad[:12]) + (f" (+{len(bad) - 12} more)" if len(bad) > 12
-                                                   else ""))
+        msg = f"{what}: " + "; ".join(bad[:12]) + (f" (+{len(bad) - 12} more)" if len(bad) > 12
+                                                    else "")
+        if not diagnose:
+            fail(msg)
+        print(f"{msg} (the diagnosis: this reading does not gate the step)", flush=True)
     summary = "" if noise is None else f"; the noise runs move {noise_over} leaves past it"
+    if bad:
+        summary += f"; the noise gate would fail on {len(bad)} entries (a diagnosis)"
     if want_noise is not None:
         summary += f", the second path's {max(want_over)}"
     return (f"losses within {loss_rtol}, {len(worst)} gradient leaves, the furthest at "
@@ -1288,7 +1294,7 @@ def train_path(cfg, scenes, dev) -> dict:
 
 
 def train_plain_compare(make_model, prepared, crit, what: str = "training step, scene 0",
-                        admit_outliers: bool = False):
+                        admit_outliers: bool = False, fp64: bool = False):
     """One step's losses, gradients and BatchNorm statistics from the same
     initial weights (``make_model()``) through the kernels and through the
     plain versions, every other run given the kernel run's assignment. The
@@ -1298,7 +1304,9 @@ def train_plain_compare(make_model, prepared, crit, what: str = "training step, 
     crosses the tolerance and the kernels lie within the tolerance of that
     run is held against that run); the backward
     kernels, on a shared K1 forward, to the tolerances themselves. The
-    kernel run's gradients and losses must be finite."""
+    kernel run's gradients and losses must be finite. With ``fp64`` the
+    step is held against its fp64 run instead (``fp64_hold``), and the
+    noise-run reading is printed beside it as a diagnosis."""
     import torch
 
     from gapro_tpu_torch.sparse import conv
@@ -1323,13 +1331,132 @@ def train_plain_compare(make_model, prepared, crit, what: str = "training step, 
                             f"{what}, backward kernels vs plain (both through K1)")
     print(f"{what}: the backward kernels agree with their plain versions ({backward})",
           flush=True)
-    summary = compare_step(kern, plain, PATH_RTOLS, f"{what}, kernels vs plain", noise=noise,
-                           want_noise=plain_noise, admit_outliers=admit_outliers)
+    if fp64:
+        # the two-direction reading above stays as the diagnosis; this
+        # cell passes or fails on the hold against fp64 below
+        summary = compare_step(kern, plain, PATH_RTOLS, f"{what}, kernels vs plain",
+                               noise=noise, want_noise=plain_noise,
+                               admit_outliers=admit_outliers, diagnose=True)
+        hold = fp64_hold(kern, plain, fp64_step(make_model, prepared, crit, assign), what)
+        summary += f"; against fp64: {hold['summary']}"
+    else:
+        summary = compare_step(kern, plain, PATH_RTOLS, f"{what}, kernels vs plain", noise=noise,
+                               want_noise=plain_noise, admit_outliers=admit_outliers)
     match = ("no matching (semantic_only)" if assign is None else
              f"{int((assign >= 0).sum())} matched instances; the plain run's own matcher "
              f"{'agreed' if torch.equal(own, assign) else 'DISAGREED'}")
     print(f"{what}: the plain run {plain_ms:.1f} ms; agrees with the kernels ({summary}); "
           f"{match}", flush=True)
+    return hold if fp64 else None
+
+
+# The S3DIS batch-4 step is held against its own fp64 run. Per leaf (a
+# loss, a gradient or a BatchNorm statistic) the kernel path's rms error
+# against fp64 over the plain path's is its ratio, the floor (FP64_FLOOR of
+# the scale: the step's largest |g| for gradients, max(1, |x|) for a loss
+# or a statistic, as compare_step's scales; 8 fp32 ulps, a few roundings
+# of a value that size) under each error; the plain path's ratio is the
+# mirror, its error over the kernel path's. A leaf is over when its ratio
+# passes FP64_FACTOR, the factor K1 and K5 are held to against fp64 per
+# launch. At the deep levels' few voxels both paths' errors are one
+# amplified rounding mode, so a leaf's ratio is a draw either way (the
+# first H100 reading: the kernel path 6 leaves over, largest 3.59; the
+# plain path 22 over, largest 5.62; PERF.md §6). So the kernel path is held
+# as compare_step holds a path to its noise runs, with the plain path's
+# mirror as the noise: at most NOISE_FACTOR times as many leaves over as
+# the plain path's, and its largest ratio at most NOISE_FACTOR times the
+# plain path's largest (and FP64_FACTOR if that is below 1). That step's
+# one-ulp runs move 81 leaves by up to 28.6 tolerances, so the noise gate
+# there allowed 162 leaves and 57.1 tolerances (PERF.md §6).
+FP64_FACTOR = 2.0
+FP64_FLOOR = 2.0 ** -20
+
+
+def to_fp64(prepared):
+    """``prepared`` with every floating tensor of it and of its batch in
+    float64 (the plan's tables are integers and stay as they are)."""
+    import torch
+
+    def cast(v):
+        return v.double() if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+
+    batch = prepared.batch
+    batch = dataclasses.replace(batch, **{f.name: cast(getattr(batch, f.name))
+                                          for f in dataclasses.fields(batch)})
+    return prepared._replace(batch=batch, **{k: cast(v) for k, v in prepared._asdict().items()
+                                             if k != "batch"})
+
+
+def fp64_step(make_model, prepared, crit, assign) -> tuple:
+    """One ISBNet step through the plain versions with the model and the
+    inputs in float64 on the device, given ``assign``: (losses, gradients,
+    statistics) in float64."""
+    from gapro_tpu_torch.train import step
+
+    model = make_model().double()
+    model.train()
+    with plain_kernels():
+        loss, (losses, _) = step._loss_fn(model, to_fp64(prepared), crit, assign=assign)
+        loss.backward()
+    return ({k: float(v.detach()) for k, v in losses.items()}, *grads_and_stats(model))
+
+
+def fp64_hold(kern: tuple, plain: tuple, ref: tuple, what: str) -> dict:
+    """Hold each leaf of ``kern`` (losses, gradients, statistics) against
+    ``ref``, an fp64 run of the same step, measured by ``plain``'s error
+    against ``ref``, as FP64_FACTOR and NOISE_FACTOR say. Prints how many
+    leaves each path has over the factor and the largest ratios; fails if
+    the kernel path is past its bounds or not finite. Returns the counts and
+    the largest ratios."""
+    import torch
+
+    (lk, gk, sk), (lp, gp, sp), (lr, gr, sr) = kern, plain, ref
+    top = max(float(t.abs().max()) for t in gr.values() if t is not None)
+
+    def rms(a, b):
+        d = (torch.as_tensor(a, dtype=torch.float64).cpu()
+             - torch.as_tensor(b, dtype=torch.float64).cpu())
+        return float(d.pow(2).mean().sqrt()) if d.numel() else 0.0
+
+    rows = []  # (name, kernel error, plain error, floor)
+    for k, r in lr.items():
+        rows.append((f"loss {k}", rms(lk[k], r), rms(lp[k], r),
+                     FP64_FLOOR * max(1.0, abs(float(r)))))
+    for k, r in gr.items():
+        if r is None:
+            if gk[k] is not None or gp[k] is not None:
+                fail(f"{what}: gradient {k} is missing from the fp64 run only")
+            continue
+        rows.append((f"grad {k}", rms(gk[k], r), rms(gp[k], r), FP64_FLOOR * top))
+    for k, r in sr.items():
+        if r.is_floating_point():
+            rows.append((f"stat {k}", rms(sk[k], r), rms(sp[k], r),
+                         FP64_FLOOR * max(1.0, float(r.abs().max()))))
+    if not all(math.isfinite(ek) for _, ek, _, _ in rows):
+        fail(f"{what}: a leaf of the kernel path is not finite")
+    kr = sorted(((max(ek, fl) / max(ep, fl), n) for n, ek, ep, fl in rows), reverse=True)
+    pr = sorted(((max(ep, fl) / max(ek, fl), n) for n, ek, ep, fl in rows), reverse=True)
+    k_over = sum(r > FP64_FACTOR for r, _ in kr)
+    p_over = sum(r > FP64_FACTOR for r, _ in pr)
+    bound = max(FP64_FACTOR, NOISE_FACTOR * pr[0][0])
+    allowed = NOISE_FACTOR * p_over
+    print(f"{what}, against fp64: {len(rows)} leaves (rms error, floor {FP64_FLOOR:.3g} of "
+          f"scale); over {FP64_FACTOR} times the other path's error: the kernel path "
+          f"{k_over}, the plain path {p_over}; largest ratio: the kernel path's {kr[0][0]:.3g} "
+          f"({kr[0][1]}), the plain path's {pr[0][0]:.3g} ({pr[0][1]}); the kernel path's "
+          f"bound {bound:.3g}, {allowed:.0f} leaves allowed over", flush=True)
+    for name, ratios in (("kernel", kr), ("plain", pr)):
+        print(f"{what}, against fp64: the 8 largest ratios of the {name} path: "
+              + "; ".join(f"{n} {r:.3g}" for r, n in ratios[:8]), flush=True)
+    if kr[0][0] > bound or k_over > allowed:
+        fail(f"{what}: against fp64 the kernel path has {k_over} leaves over {FP64_FACTOR} "
+             f"times the plain path's rms error ({allowed:.0f} allowed), the largest "
+             f"{kr[0][0]:.3g} ({kr[0][1]}; bound {bound:.3g})")
+    return dict(leaves=len(rows), kernel_over=k_over, plain_over=p_over, largest=kr[0][0],
+                largest_leaf=kr[0][1], plain_largest=pr[0][0], bound=bound,
+                summary=f"{len(rows)} leaves; {k_over} of the kernel path over {FP64_FACTOR} "
+                        f"times the plain path's rms error, the plain path's mirror {p_over}; "
+                        f"largest {kr[0][0]:.3g} ({kr[0][1]}) against the bound {bound:.3g}")
 
 
 class GPLabelled:
@@ -3023,24 +3150,7 @@ def s3dis_phase(dev, root: str) -> dict:
     val_ds = port_train.build_dataset(cfg, training=False)
     trainer = trainer_phase(dev, work_dir, cfg, train_ds, dict(conv_need(mcfg), fps=1, dyco=1),
                             label="S3DIS trainer", val_ds=val_ds)
-    loader = build_dataloader(train_ds, cfg.train.batch_size, training=True, seed=0, epoch=1,
-                              num_workers=DATA_WORKERS)
-    lb = next(loader)
-    loader.close()
-    prepared = port_train.make_prepare(cfg, dev)(lb.points, lb.batch_size)
-    print(f"S3DIS batch {lb.batch_size}: {int(prepared.batch.valid.sum())} voxels from "
-          f"{int(lb.points.valid.sum())} points (rooms {lb.scan_ids})", flush=True)
-    what = f"S3DIS step, batch {lb.batch_size}"
-    crit = CriterionConfig(**dict(cfg.criterion))
-    train_plain_compare(lambda: port_train.build_model(cfg, dev, seed=0)[0], prepared, crit, what)
-    step_drift = k1_step_drift(port_train.build_model(cfg, dev, seed=0)[0], prepared, crit, what)
-    levels = prepared.batch.plan.levels
-    print(f"conv backward at the {what}'s plan (levels "
-          f"{[lp.subm_nbr.shape[0] for lp in levels]}):", flush=True)
-    bwd_b4 = backward_kernel_phase(mcfg, [lp.subm_nbr.shape[0] for lp in levels], levels, dev,
-                                   row_orders=False)
-    conv_b4 = path_conv_times(mcfg, prepared.batch.plan, dev, what)
-    del levels, prepared
+    step = s3dis_step_phase(dev, cfg, train_ds)
     torch.cuda.empty_cache()
 
     # the test CLI on the Area_5 rooms
@@ -3060,9 +3170,39 @@ def s3dis_phase(dev, root: str) -> dict:
     if not all(math.isfinite(v) for v in ap.values()):
         fail(f"S3DIS test CLI: AP {ap}")
     print(f"S3DIS phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    return dict(launches=launches, k1=k1, k4=k4, k5=k5, trainer=trainer, conv_b4=conv_b4,
-                bwd_b4=bwd_b4, step_drift=step_drift, cli_launches=cli_launches,
-                request_ms=times)
+    return dict(launches=launches, k1=k1, k4=k4, k5=k5, trainer=trainer, cli_launches=cli_launches,
+                request_ms=times, **step)
+
+
+def s3dis_step_phase(dev, cfg, train_ds) -> dict:
+    """One S3DIS training step at batch 4 (the loader's first batch): held
+    against its fp64 run (``fp64_hold``; the noise-run reading beside it),
+    K1 and dfeats against fp64 on its own inputs, the conv's backward
+    kernels against their plain versions and timed at its plan."""
+    from gapro_tpu_torch.data.dataset import build_dataloader
+    from gapro_tpu_torch.losses.criterion import CriterionConfig
+    from gapro_tpu_torch.tools import train as port_train
+
+    mcfg = port_train.model_config(cfg)
+    loader = build_dataloader(train_ds, cfg.train.batch_size, training=True, seed=0, epoch=1,
+                              num_workers=DATA_WORKERS)
+    lb = next(loader)
+    loader.close()
+    prepared = port_train.make_prepare(cfg, dev)(lb.points, lb.batch_size)
+    print(f"S3DIS batch {lb.batch_size}: {int(prepared.batch.valid.sum())} voxels from "
+          f"{int(lb.points.valid.sum())} points (rooms {lb.scan_ids})", flush=True)
+    what = f"S3DIS step, batch {lb.batch_size}"
+    crit = CriterionConfig(**dict(cfg.criterion))
+    hold = train_plain_compare(lambda: port_train.build_model(cfg, dev, seed=0)[0], prepared,
+                               crit, what, fp64=True)
+    step_drift = k1_step_drift(port_train.build_model(cfg, dev, seed=0)[0], prepared, crit, what)
+    levels = prepared.batch.plan.levels
+    print(f"conv backward at the {what}'s plan (levels "
+          f"{[lp.subm_nbr.shape[0] for lp in levels]}):", flush=True)
+    bwd_b4 = backward_kernel_phase(mcfg, [lp.subm_nbr.shape[0] for lp in levels], levels, dev,
+                                   row_orders=False)
+    conv_b4 = path_conv_times(mcfg, prepared.batch.plan, dev, what)
+    return dict(conv_b4=conv_b4, bwd_b4=bwd_b4, step_drift=step_drift, fp64_hold=hold)
 
 
 # ---- 16-18. the learning smoke, data-parallel training, self-training ----
@@ -3603,6 +3743,697 @@ def selftrain_phase(dev, checkpoint: str, root: str) -> dict:
     return dict(seconds=times, launches=launches)
 
 
+# ---- 19-22. the labeler across devices, offline data preparation, the
+# reference-checkpoint loader and the library functions (PR 12) ---------
+
+
+def labeler_multidev_phase(dev) -> dict:
+    """bench.py's 16-scene sweep (LABELER_PRESETS) through
+    ``generate_scene_labels_stream`` with three device lists: [cuda:0];
+    every visible card, or [cuda:0, cuda:0] on one card (the round-robin
+    and the threads run, on one card); and the second with
+    ``batch_submit``. sem, inst and the superpoint map equal, prob, mu and
+    var within ``labeler_gate``'s bound; scenes/s of each (one pass each,
+    after a warm pass of the first)."""
+    import torch
+
+    from gapro_tpu_torch.data import make_synthetic_scene
+    from gapro_tpu_torch.labeler import LabelerConfig, generate_scene_labels_stream
+    from gapro_tpu_torch.labeler import pipeline as lp
+
+    t0 = time.perf_counter()
+    scenes = [make_synthetic_scene(seed=s, **LABELER_PRESETS["default"])
+              for s in range(LABELER_SCENES)]
+    n = torch.cuda.device_count()
+    one = [torch.device("cuda", 0)]
+    many = [torch.device("cuda", i) for i in range(n)] if n > 1 else one * 2
+    named = "[" + ", ".join(str(d) for d in many) + "]"
+    lists = (("[cuda:0]", dict(devices=one)),
+             (f"{named} ({'every card' if n > 1 else 'one card, twice'})", dict(devices=many)),
+             (f"{named}, batch_submit", dict(devices=many, batch_submit=True)))
+
+    def sweep(kw):
+        rec = {}
+        with record_fits(lp, rec):
+            t = time.perf_counter()
+            rec["labels"] = [out for _, out in generate_scene_labels_stream(
+                (labeler_inputs(s) for s in scenes), LabelerConfig(), window=LABELER_WINDOW,
+                **kw)]
+            sec = time.perf_counter() - t
+        return rec, sec
+
+    sweep(lists[0][1])  # warm
+    runs, rates = [], {}
+    for name, kw in lists:
+        rec, sec = sweep(kw)
+        rates[name] = LABELER_SCENES / sec
+        runs.append(rec)
+        print(f"labeler across devices, {name}: {sec:.3f} s = {rates[name]:.3f} scenes/s",
+              flush=True)
+    for (name, _), rec in zip(lists[1:], runs[1:]):
+        for s, (a, b) in enumerate(zip(rec["labels"], runs[0]["labels"])):
+            for k, what in ((0, "sem"), (1, "inst"), (5, "the superpoint map")):
+                if not np.array_equal(a[k], b[k]):
+                    fail(f"labeler across devices, {name}: scene {s}'s {what} differs from "
+                         f"[cuda:0]'s")
+        numbers, bad = labeler_gate(rec, runs[0], LABELER_WINDOW)
+        if bad:
+            fail(f"labeler across devices, {name} against [cuda:0]: " + "; ".join(bad))
+        bitwise = same_labels(rec["labels"], runs[0]["labels"])
+        print(f"labeler across devices, {name}: labels equal to [cuda:0]'s; fits within "
+              f"{numbers['fit_ratio']:.3g} of the bound; {numbers['jobs']} jobs; every output "
+              f"{'equal bit for bit' if bitwise else 'NOT bit-identical (within the bound)'}",
+              flush=True)
+    print(f"labeler across devices: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(rates=rates, cards=n)
+
+
+# The raw ScanNet scan prepare_phase writes: a room of triangulated grids
+# (floor, four walls) and RAW_OBJECTS boxes on the floor, each face a grid
+# of RAW_GRID x RAW_GRID vertices; about 150,000 vertices and 300,000 faces,
+# the size of a ScanNet v2 mesh (*_vh_clean_2.ply).
+RAW_ROOM = (8.0, 6.0, 2.5)  # m
+RAW_FLOOR_GRID = (200, 150)
+RAW_WALL_ROWS = 60
+RAW_OBJECTS = 14
+RAW_GRID = 30
+RAW_PATCH = 10  # vertices a side of one over-segmentation patch (segs.json)
+# (raw category, NYU40 id): the wall and floor groups, then the objects'
+RAW_CLASSES = (("wall", 1), ("floor", 2), ("cabinet", 3), ("bed", 4), ("chair", 5),
+               ("sofa", 6), ("table", 7))
+S3DIS_RAW_POINTS = 250_000
+
+
+def raw_scan_mesh(seed: int = 0) -> dict:
+    """The synthetic room mesh: vertices [V, 3] float32, faces [F, 3],
+    colours [V, 3] uint8, each vertex's NYU40 label, over-segment id and
+    object group (-1 for the wall and floor), and the groups' raw names."""
+    rng = np.random.default_rng(seed)
+    w, d, h = RAW_ROOM
+    planes = [((0, 0, 0), (w, 0, 0), (0, d, 0), RAW_FLOOR_GRID, 1, -1)]
+    rows = RAW_WALL_ROWS
+    for o, u, v, nu in (((0, 0, 0), (w, 0, 0), (0, 0, h), RAW_FLOOR_GRID[0]),
+                        ((0, d, 0), (w, 0, 0), (0, 0, h), RAW_FLOOR_GRID[0]),
+                        ((0, 0, 0), (0, d, 0), (0, 0, h), RAW_FLOOR_GRID[1]),
+                        ((w, 0, 0), (0, d, 0), (0, 0, h), RAW_FLOOR_GRID[1])):
+        planes.append((o, u, v, (nu, rows), 0, -1))
+    names = []
+    for k in range(RAW_OBJECTS):
+        cls = 2 + k % (len(RAW_CLASSES) - 2)
+        size = rng.uniform(0.4, 1.2, 3)
+        lo = np.array([rng.uniform(0.2, w - size[0] - 0.2), rng.uniform(0.2, d - size[1] - 0.2),
+                       0.0])
+        hi = lo + size
+        for axis in range(3):  # the two faces normal to ``axis``
+            a, b = [i for i in range(3) if i != axis]
+            for side in (lo, hi):
+                o = lo.copy()
+                o[axis] = side[axis]
+                u, v = np.zeros(3), np.zeros(3)
+                u[a], v[b] = size[a], size[b]
+                planes.append((o, u, v, (RAW_GRID, RAW_GRID), cls, k))
+        names.append(RAW_CLASSES[cls][0])
+    verts, faces, cols, label, seg, group = [], [], [], [], [], []
+    n_seg = 0
+    for o, u, v, (nu, nv), cls, k in planes:
+        i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+        p = (np.asarray(o, np.float64) + np.outer(i.ravel() / (nu - 1), u)
+             + np.outer(j.ravel() / (nv - 1), v) + rng.normal(0.0, 0.001, (nu * nv, 3)))
+        base = sum(len(x) for x in verts)
+        a = (i[:-1, :-1] * nv + j[:-1, :-1]).ravel() + base
+        faces.append(np.concatenate([np.stack([a, a + nv, a + 1], 1),
+                                     np.stack([a + 1, a + nv, a + nv + 1], 1)]))
+        verts.append(p)
+        colour = rng.integers(40, 216, 3)
+        cols.append(np.clip(colour + rng.integers(-12, 13, (nu * nv, 3)), 0, 255))
+        label.append(np.full(nu * nv, RAW_CLASSES[cls][1]))
+        patch = (i // RAW_PATCH * ((nv - 1) // RAW_PATCH + 1) + j // RAW_PATCH).ravel()
+        seg.append(n_seg + patch)
+        n_seg += int(patch.max()) + 1
+        group.append(np.full(nu * nv, k))
+    return dict(verts=np.concatenate(verts).astype(np.float32), faces=np.concatenate(faces),
+                rgb=np.concatenate(cols).astype(np.uint8), label=np.concatenate(label),
+                seg=np.concatenate(seg), group=np.concatenate(group), names=names)
+
+
+def write_ply(path: str, vertex: np.ndarray, faces: np.ndarray) -> None:
+    """A binary little-endian PLY: ``vertex`` a structured array (float x, y,
+    z, uchar colours, [ushort label]), faces as ``list uchar int``."""
+    ply_type = {"<f4": "float", "|u1": "uchar", "<u2": "ushort"}
+    head = ["ply", "format binary_little_endian 1.0", f"element vertex {len(vertex)}"]
+    head += [f"property {ply_type[vertex.dtype[n].str]} {n}" for n in vertex.dtype.names]
+    head += [f"element face {len(faces)}", "property list uchar int vertex_indices",
+             "end_header"]
+    rec = np.empty(len(faces), [("n", "u1"), ("i", "<i4", (3,))])
+    rec["n"], rec["i"] = 3, faces
+    with open(path, "wb") as f:
+        f.write(("\n".join(head) + "\n").encode("ascii"))
+        f.write(vertex.tobytes())
+        f.write(rec.tobytes())
+
+
+def write_raw_scan(scans_dir: str, scan: str, mesh: dict) -> str:
+    """``mesh`` as ScanNet's raw files: ``<scan>_vh_clean_2.ply``, its
+    ``.labels.ply``, ``.0.010000.segs.json``, ``<scan>.aggregation.json``,
+    and the label table. Returns the table's path."""
+    os.makedirs(scans_dir, exist_ok=True)
+    base = os.path.join(scans_dir, scan)
+    fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"), ("green", "u1"),
+              ("blue", "u1"), ("alpha", "u1")]
+    v = np.empty(len(mesh["verts"]), fields)
+    for i, c in enumerate("xyz"):
+        v[c] = mesh["verts"][:, i]
+    for i, c in enumerate(("red", "green", "blue")):
+        v[c] = mesh["rgb"][:, i]
+    v["alpha"] = 255
+    write_ply(base + "_vh_clean_2.ply", v, mesh["faces"])
+    lab = np.empty(len(v), fields + [("label", "<u2")])
+    for name in v.dtype.names:
+        lab[name] = v[name]
+    lab["label"] = mesh["label"]
+    write_ply(base + "_vh_clean_2.labels.ply", lab, mesh["faces"])
+    with open(base + "_vh_clean_2.0.010000.segs.json", "w") as f:
+        json.dump({"segIndices": mesh["seg"].tolist()}, f)
+    groups = [{"label": name, "segments": []} for name in ("wall", "floor")]
+    groups += [{"label": name, "segments": np.unique(mesh["seg"][mesh["group"] == k]).tolist()}
+               for k, name in enumerate(mesh["names"])]
+    walls = np.unique(mesh["seg"][(mesh["group"] == -1) & (mesh["label"] == 1)])
+    floor = np.unique(mesh["seg"][(mesh["group"] == -1) & (mesh["label"] == 2)])
+    groups[0]["segments"], groups[1]["segments"] = walls.tolist(), floor.tolist()
+    with open(base + ".aggregation.json", "w") as f:
+        json.dump({"segGroups": [dict(id=i, objectId=i, **g) for i, g in enumerate(groups)]}, f)
+    tsv = os.path.join(scans_dir, "scannetv2-labels.combined.tsv")
+    with open(tsv, "w") as f:
+        f.write("id\traw_category\tcategory\tcount\tnyu40id\teigen13id\tnyu40class\t"
+                "nyu40class2\n")
+        for name, nyu in RAW_CLASSES:
+            f.write(f"{nyu}\t{name}\tx\t1\t{nyu}\tx\t{name}\t{name}\n")
+    return tsv
+
+
+S3DIS_CLASS_NAMES = ("ceiling", "floor", "wall", "beam", "column", "window", "door", "chair",
+                     "table", "bookcase", "sofa", "board", "clutter")
+
+
+def write_s3dis_raw(data_dir: str, room: dict) -> str:
+    """``room`` (``s3dis_room``) as the Stanford aligned dataset's text
+    files: ``Area_5/office_1/Annotations/<class>_<k>.txt``, one object a
+    file, ``x y z r g b`` a line. Returns the room's directory."""
+    ann = os.path.join(data_dir, "Area_5", "office_1", "Annotations")
+    os.makedirs(ann, exist_ok=True)
+    rgb = np.rint((room["rgb"] + 1.0) * 127.5).astype(np.int64)
+    for k in np.unique(room["inst"]):
+        m = room["inst"] == k
+        cls = S3DIS_CLASS_NAMES[int(room["sem"][m][0])]
+        np.savetxt(os.path.join(ann, f"{cls}_{k}.txt"),
+                   np.concatenate([room["xyz"][m], rgb[m]], 1), fmt="%.4f %.4f %.4f %d %d %d")
+    return os.path.dirname(ann)
+
+
+def prepare_phase(dev, root: str) -> dict:
+    """Raw data -> the port's preparation tools -> its datasets -> the card.
+    A raw ScanNet scan at full size (``raw_scan_mesh``) through
+    ``prepare_scannet``'s CLI (the segmentator built from its source at
+    first use, ``segment_mesh`` timed alone), loaded by ``ScanNetDataset``
+    and served as one full-width ISBNet request (seed-0 weights, as phase
+    4's), held against the plain versions; then a synthetic S3DIS room of S3DIS_RAW_POINTS
+    points written as text through ``prepare_s3dis``'s CLI and loaded by
+    ``S3DISDataset``."""
+    import types
+
+    import torch
+
+    from gapro_tpu_torch.data.dataset import S3DISDataset, ScanNetDataset, build_dataloader
+    from gapro_tpu_torch.models import isbnet
+    from gapro_tpu_torch.native import segmentator
+    from gapro_tpu_torch.tools import prepare_s3dis, prepare_scannet
+
+    t0 = time.perf_counter()
+    mesh = raw_scan_mesh()
+    scans = os.path.join(root, "scans")
+    tsv = write_raw_scan(scans, "scene0000_00", mesh)
+    t_write = time.perf_counter() - t0
+    segmentator.LIB.unlink(missing_ok=True)
+    t1 = time.perf_counter()
+    segmentator.build()
+    t_build = time.perf_counter() - t1
+    xyz = mesh["verts"] - mesh["verts"].mean(0)
+    t1 = time.perf_counter()
+    spp = segmentator.segment_mesh(xyz, mesh["faces"])
+    t_seg = time.perf_counter() - t1
+    out = os.path.join(root, "scannetv2")
+    t1 = time.perf_counter()
+    if prepare_scannet.main(["--scans_dir", scans, "--out", out, "--split", "val",
+                             "--labels_tsv", tsv]) != 0:
+        fail("prepare_scannet's CLI failed")
+    t_cli = time.perf_counter() - t1
+    ds = ScanNetDataset(out, prefix="val", training=False)
+    scene = ds.load(0)
+    n_inst = len(np.unique(scene["instance"][scene["instance"] >= 0]))
+    if (len(ds) != 1 or len(scene["xyz"]) != len(mesh["verts"]) or n_inst != RAW_OBJECTS
+            or not np.array_equal(np.unique(scene["spp"], return_inverse=True)[1],
+                                  np.unique(spp, return_inverse=True)[1])):
+        fail(f"the prepared scan is not the raw one: {len(scene['xyz'])} points of "
+             f"{len(mesh['verts'])}, {n_inst} instances of {RAW_OBJECTS}")
+    print(f"prepare, ScanNet: a raw scan of {len(mesh['verts'])} vertices and "
+          f"{len(mesh['faces'])} faces written in {t_write:.2f} s; the segmentator built in "
+          f"{t_build:.2f} s (g++, into {segmentator.LIB.parent.name}/); segment_mesh "
+          f"{t_seg:.3f} s ({int(spp.max()) + 1} superpoints); the prepare_scannet CLI "
+          f"{t_cli:.2f} s; {n_inst} instances", flush=True)
+
+    model = isbnet.ISBNet(isbnet.ISBNetConfig(filter_bg_thresh=0.0), seed=0, device=dev)
+    with torch.no_grad():
+        model.inst_conf_head.dense2.bias += CONF_SHIFT
+    lb = next(iter(build_dataloader(ds, 1, training=False, drop_last=False)))
+    s = types.SimpleNamespace(xyz=lb.scenes[0]["xyz"], spp=lb.scenes[0]["spp"])
+    serve(model, s, lb.points, dev)  # cold
+    zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prepared, got, inst, stages = serve(model, s, lb.points, dev)
+    ms = (time.perf_counter() - t1) * 1e3
+    launches = read_counts()
+    if launches["subm_conv"] < 53 or launches["fps"] != 4 or launches["dyco"] != 3:
+        fail(f"the prepared scan's request did not run through the kernels: {launches}")
+    with plain_kernels():
+        _, want, inst_plain, _ = serve(model, s, lb.points, dev)
+    err = compare_outputs(got, want, PATH_RTOL, "the prepared scan's request, kernels vs plain")
+    if not same_instances(inst, inst_plain):
+        fail("the prepared scan's request: " + instance_diff(inst, inst_plain, got, want))
+    print(f"prepare, ScanNet: the scan's request {ms:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+          + f" ms), {int(prepared.batch.valid.sum())} voxels, launches {launches}; agrees with "
+          f"the plain versions (discrete equal, floats within {err:.3g} of scale, "
+          f"{len(inst)} identical instances)", flush=True)
+
+    raw_dir = os.path.join(root, "s3dis_raw")
+    t1 = time.perf_counter()
+    room = s3dis_room(77, S3DIS_RAW_POINTS)
+    write_s3dis_raw(raw_dir, room)
+    t_s3_write = time.perf_counter() - t1
+    s3_out = os.path.join(root, "s3dis")
+    t1 = time.perf_counter()
+    if prepare_s3dis.main(["--data_dir", raw_dir, "--out", s3_out, "--areas", "5"]) != 0:
+        fail("prepare_s3dis's CLI failed")
+    t_s3 = time.perf_counter() - t1
+    r = S3DISDataset(s3_out, prefix="Area_5", training=False).load(0)
+    n_obj = len(np.unique(room["inst"]))
+    if (len(r["xyz"]) != S3DIS_RAW_POINTS or len(np.unique(r["instance"])) != n_obj
+            or sorted(np.unique(r["semantic"])) != sorted(np.unique(room["sem"]))):
+        fail(f"the prepared S3DIS room is not the raw one: {len(r['xyz'])} points, "
+             f"{len(np.unique(r['instance']))} instances of {n_obj}")
+    print(f"prepare, S3DIS: a room of {S3DIS_RAW_POINTS} points in {n_obj} object files "
+          f"written in {t_s3_write:.2f} s; the prepare_s3dis CLI {t_s3:.2f} s "
+          f"({int(r['spp'].max()) + 1} geometric superpoints); loaded by S3DISDataset",
+          flush=True)
+    return dict(write_s=t_write, build_s=t_build, segment_s=t_seg, cli_s=t_cli, request_ms=ms,
+                launches=launches, s3dis_cli_s=t_s3, s3dis_write_s=t_s3_write)
+
+
+def fake_reference(family: str, seed: int, **dims) -> dict:
+    """A reference-shaped ``state_dict`` of random numpy weights: ISBNet's
+    (ISBNet/isbnet/model/isbnet.py:89-209; dims C, NB, DD, M, n_cls) or
+    SPFormer's (spformer.py:38-69, query_decoder.py:101-138; dims media,
+    nb, d_model, nhead, num_layer, num_query, hidden, num_class), spconv 2.x
+    KRSC kernels, as ``tests/test_convert_ckpt.py:_fake_state_dict`` writes
+    them. A weight's entries have standard deviation 1/sqrt(fan-in), so
+    that the activations keep their scale through the full-width U-Net; the
+    BatchNorm statistics are near (0, 1)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def w(key, *shape, fan_in=None):
+        fan = fan_in or (int(np.prod(shape[1:])) if len(shape) > 1 else 1)
+        sd[key] = (rng.standard_normal(shape) / np.sqrt(fan)).astype(np.float32)
+
+    def b(key, n):
+        sd[key] = (rng.standard_normal(n) * 0.05).astype(np.float32)
+
+    def norm(prefix, n, stats=True):
+        sd[f"{prefix}.weight"] = (1.0 + rng.standard_normal(n) * 0.1).astype(np.float32)
+        b(f"{prefix}.bias", n)
+        if stats:
+            b(f"{prefix}.running_mean", n)
+            sd[f"{prefix}.running_var"] = (rng.random(n) * 0.5 + 0.75).astype(np.float32)
+            sd[f"{prefix}.num_batches_tracked"] = np.asarray(10)
+
+    def res_block(prefix, cin, cout):
+        norm(f"{prefix}.conv_branch.0", cin)
+        w(f"{prefix}.conv_branch.2.weight", cout, 3, 3, 3, cin)
+        norm(f"{prefix}.conv_branch.3", cout)
+        w(f"{prefix}.conv_branch.5.weight", cout, 3, 3, 3, cout)
+        if cin != cout:
+            w(f"{prefix}.i_branch.0.weight", cout, 1, 1, 1, cin)
+
+    def unet(prefix, planes):
+        p0 = planes[0]
+        for i in range(2):
+            res_block(f"{prefix}.blocks.block{i}", p0, p0)
+        if len(planes) > 1:
+            p1 = planes[1]
+            norm(f"{prefix}.conv.0", p0)
+            w(f"{prefix}.conv.2.weight", p1, 2, 2, 2, p0)
+            unet(f"{prefix}.u", planes[1:])
+            norm(f"{prefix}.deconv.0", p1)
+            w(f"{prefix}.deconv.2.weight", p0, 2, 2, 2, p1)
+            res_block(f"{prefix}.blocks_tail.block0", 2 * p0, p0)
+            res_block(f"{prefix}.blocks_tail.block1", p0, p0)
+
+    def linear(prefix, cout, cin, bias=True):
+        w(f"{prefix}.weight", cout, cin)
+        if bias:
+            b(f"{prefix}.bias", cout)
+
+    def mlp(prefix, cin, cout, num_layers):
+        ti = 0
+        for _ in range(num_layers - 1):
+            linear(f"{prefix}.{ti}", cin, cin)
+            norm(f"{prefix}.{ti + 1}", cin)
+            ti += 3
+        linear(f"{prefix}.{ti}", cout, cin)
+
+    def backbone(c, nb):
+        w("input_conv.0.weight", c, 3, 3, 3, 6)
+        unet("unet", [c * (i + 1) for i in range(nb)])
+        norm("output_layer.0", c)
+        mlp("mu_linear", c, 1, 3)
+        mlp("logvar_linear", c, 1, 3)
+
+    if family == "spformer":
+        media, d, hid = dims["media"], dims["d_model"], dims["hidden"]
+        backbone(media, dims["nb"])
+        linear("decoder.input_proj.0", d, media)
+        norm("decoder.input_proj.1", d, stats=False)
+        w("decoder.query.weight", dims["num_query"], d, fan_in=1)
+        linear("decoder.x_mask.0", d, media)
+        linear("decoder.x_mask.2", d, d)
+        for i in range(dims["num_layer"]):
+            for kind in ("cross_attn_layers", "self_attn_layers"):
+                p = f"decoder.{kind}.{i}"
+                w(f"{p}.attn.in_proj_weight", 3 * d, d)
+                b(f"{p}.attn.in_proj_bias", 3 * d)
+                linear(f"{p}.attn.out_proj", d, d)
+                norm(f"{p}.norm", d, stats=False)
+            linear(f"decoder.ffn_layers.{i}.net.0", hid, d)
+            linear(f"decoder.ffn_layers.{i}.net.3", d, hid)
+            norm(f"decoder.ffn_layers.{i}.norm", d, stats=False)
+        norm("decoder.out_norm", d, stats=False)
+        linear("decoder.out_cls.0", d, d)
+        linear("decoder.out_cls.2", dims["num_class"] + 1, d)
+        linear("decoder.out_score.0", d, d)
+        linear("decoder.out_score.2", 1, d)
+        return sd
+
+    c, dd, m, n_cls = dims["C"], dims["DD"], dims["M"], dims["n_cls"]
+    backbone(c, dims["NB"])
+    mlp("semantic_linear", c, n_cls, 2)
+    mlp("offset_vertices_linear", c, 6, 2)
+    mlp("box_conf_linear", c, 1, 2)
+
+    def shared_mlp(prefix, chans):
+        for i in range(len(chans) - 1):
+            w(f"{prefix}.layer{i}.conv.weight", chans[i + 1], chans[i], 1, 1)
+            norm(f"{prefix}.layer{i}.bn.bn", chans[i + 1])
+
+    def generic(prefix, cin, hidden, cout, out_norm=False):
+        ti, prev = 0, cin
+        for hdim in hidden:
+            w(f"{prefix}.layers.{ti}.weight", hdim, prev, 1)
+            norm(f"{prefix}.layers.{ti + 1}", hdim)
+            prev, ti = hdim, ti + 3
+        w(f"{prefix}.layers.{ti}.weight", cout, prev, 1)
+        b(f"{prefix}.layers.{ti}.bias", cout)
+        if out_norm:
+            norm(f"{prefix}.layers.{ti + 1}", cout)
+
+    for name, dim in (("point_aggregator1", c), ("point_aggregator2", 2 * c)):
+        shared_mlp(f"{name}.mlp_module1", [dim + 6, dim, 2 * dim])
+        shared_mlp(f"{name}.mlp_module2", [2 * dim + 6, 2 * dim])
+        w(f"{name}.mlp_module3.0.conv.weight", 8 * dim, 2 * dim, 1)
+        norm(f"{name}.mlp_module3.0.bn.bn", 8 * dim)
+        w(f"{name}.mlp_module3.1.conv.weight", 2 * dim, 8 * dim, 1)
+        norm(f"{name}.mlp_module3.1.bn.bn", 2 * dim)
+    generic("inst_shared_mlp", 4 * c, [4 * c], dd, out_norm=True)
+    generic("inst_sem_head", dd, [dd, dd], n_cls)
+    generic("inst_conf_head", dd, [dd, dd], 1)
+    generic("inst_box_head", dd, [dd, dd], 6)
+    for i in range(3):
+        w(f"mask_tower.{i}.0.conv.weight", c, c, 1)
+        norm(f"mask_tower.{i}.1", c)
+    w("mask_tower.3.weight", m, c, 1)
+    b("mask_tower.3.bias", m)
+    for i in range(2):
+        w(f"inst_mask_head.{i}.0.conv.weight", dd, dd, 1)
+        norm(f"inst_mask_head.{i}.1", dd)
+    num_gen = (m + 6) * m + m * (m // 2) + (m // 2) + m + (m // 2) + 1
+    w("inst_mask_head.2.weight", num_gen, dd, 1)
+    b("inst_mask_head.2.bias", num_gen)
+    return sd
+
+
+# Full-width reference checkpoints: ISBNet at configs/isbnet_scannetv2.yaml's
+# widths (C 32, 7 levels, dec_dim 128, mask dim 32, ScanNet's 18 classes and
+# the background), SPFormer at configs/spformer_scannetv2.yaml's.
+CKPT_ISBNET = dict(C=32, NB=7, DD=128, M=32, n_cls=19)
+CKPT_SPFORMER = dict(media=32, nb=5, d_model=256, nhead=8, num_layer=6, num_query=400,
+                     hidden=1024, num_class=18)
+
+
+def ckpt_phase(dev, scene, root: str) -> dict:
+    """The reference-checkpoint loader at full width: a fake reference
+    ``.pth`` of each family (``fake_reference``, under ``net`` as the
+    reference's trainer saves it) through ``convert_torch_ckpt``'s CLI; no
+    key unused or missing; the result loaded by ``tools/test.py``'s loader
+    (``load_model_weights``), every entry equal to the file's; one request
+    of ``scene`` through the kernels (counted) and through the plain
+    versions, which must agree."""
+    import torch
+
+    from gapro_tpu_torch.models import isbnet
+    from gapro_tpu_torch.models.spformer import SPFormer, SPFormerConfig
+    from gapro_tpu_torch.tools import convert_torch_ckpt as cc
+    from gapro_tpu_torch.train.checkpoint import load_checkpoint, load_model_weights
+
+    os.makedirs(root, exist_ok=True)
+    s, pb = scene
+    out = {}
+    for family, dims, make, serve_fn in (
+            ("isbnet", CKPT_ISBNET,
+             lambda: isbnet.ISBNet(isbnet.ISBNetConfig(filter_bg_thresh=0.0), seed=1, device=dev),
+             serve),
+            ("spformer", CKPT_SPFORMER,
+             lambda: SPFormer(SPFormerConfig(), seed=1, device=dev), spformer_serve)):
+        ref = os.path.join(root, f"{family}_reference.pth")
+        torch.save({"net": {k: torch.from_numpy(np.asarray(v))
+                            for k, v in fake_reference(family, 0, **dims).items()}}, ref)
+        converted = os.path.join(root, f"{family}_converted.pth")
+        t0 = time.perf_counter()
+        if cc.main([ref, converted]) != 0:
+            fail(f"convert_torch_ckpt failed on the {family} reference")
+        t_cli = time.perf_counter() - t0
+        sd = cc.read_reference(ref)
+        report = (cc.convert_spformer_state_dict(sd)[1] if family == "spformer"
+                  else cc.convert_state_dict(sd)[1])
+        if report["unused_torch_keys"] or report["missing_torch_keys"]:
+            fail(f"the {family} reference: unused {report['unused_torch_keys'][:4]}, missing "
+                 f"{report['missing_torch_keys'][:4]}")
+        model = make()
+        saved = load_checkpoint(converted)["model"]
+        want = model.state_dict()
+        if set(saved) != set(want) or any(saved[k].shape != want[k].shape for k in want):
+            fail(f"the converted {family} checkpoint does not match the model's state_dict: "
+                 f"{sorted(set(saved) ^ set(want))[:6]}")
+        load_model_weights(converted, model)
+        bad = [k for k, v in model.state_dict().items() if not torch.equal(v.cpu(), saved[k])]
+        if bad:
+            fail(f"load_model_weights left {len(bad)} {family} entries unloaded: {bad[:4]}")
+        with torch.no_grad():  # untrained scores rank nothing (see CONF_SHIFT)
+            head = (model.decoder.out_score_1 if family == "spformer"
+                    else model.inst_conf_head.dense2)
+            head.bias += CONF_SHIFT
+        serve_fn(model, s, pb, dev)  # cold
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, got, inst, stages = serve_fn(model, s, pb, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        need = (("subm_conv", 1),) + ((("fps", 4), ("dyco", 3)) if family == "isbnet" else ())
+        if any(launches[k] < n for k, n in need):
+            fail(f"the converted {family} request did not run through the kernels: {launches}")
+        with plain_kernels():
+            _, plain, inst_plain, _ = serve_fn(model, s, pb, dev)
+        err = compare_outputs(got, plain, PATH_RTOL, f"the converted {family} request")
+        if not same_instances(inst, inst_plain):
+            fail(f"the converted {family} request: {len(inst)} against {len(inst_plain)} "
+                 f"instances, or their records differ")
+        print(f"checkpoint loader, {family}: {len(sd)} reference keys -> {len(saved)} entries "
+              f"in {t_cli:.2f} s (the CLI), 0 unused, 0 missing, loaded by load_model_weights; "
+              f"a request {ms:.1f} ms (" + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+              + f" ms), {len(inst)} instances, launches {launches}; agrees with the plain "
+              f"versions (floats within {err:.3g} of scale)", flush=True)
+        out[family] = dict(cli_s=t_cli, request_ms=ms, launches=launches, keys=len(sd))
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+# The library functions that only tests call, on the card at a ScanNet
+# scene's size: 240,000 valid points of a capacity of 262,144, 4,096
+# superpoints, 19 classes; FPS variants sample 2,048 (n_sample_pa1);
+# the distance-matrix FPS and the k-NN at their own sizes (4,096 candidates;
+# 16,384 queries against 2,048 samples, whose [Q, N, 3] differences take
+# 400 MB); the mask IoU of 256 proposals against 192 instances.
+LIB_N, LIB_CAP, LIB_SPP, LIB_SAMPLE, LIB_QUERIES = 240_000, 262_144, 4096, 2048, 16384
+
+
+def library_phase(dev) -> dict:
+    """Each library function on the card against its CPU run on the same
+    inputs: integer outputs and the FPS variants' indices equal, floats
+    within 1e-5 of scale (sums in another order). Times each on the card
+    (CUDA events, after a warm call) and on the host."""
+    import torch
+
+    from gapro_tpu_torch.core import batching, segment
+    from gapro_tpu_torch.ops import components, fps, interpolate, maskiou, nms, voxelize
+    from gapro_tpu_torch.utils import rle
+
+    rng = np.random.default_rng(0)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x))
+
+    valid = np.zeros((1, LIB_CAP), bool)
+    valid[0, :LIB_N] = True
+    xyz = np.zeros((1, LIB_CAP, 3), np.float32)
+    xyz[0, :LIB_N] = rng.random((LIB_N, 3)) * [8.0, 6.0, 2.5]
+    spp = np.where(valid[0], rng.integers(0, LIB_SPP, LIB_CAP), -1)
+    sem = rng.integers(-1, 19, LIB_CAP)
+    data = rng.integers(0, 1000, LIB_CAP).astype(np.float32)
+    vox = rng.standard_normal((LIB_CAP, 32)).astype(np.float32)
+    p2v = np.where(valid[0], rng.integers(0, LIB_CAP, LIB_CAP), -1).astype(np.int32)
+    weights = (rng.random((1, LIB_CAP)) + 0.5).astype(np.float32)
+    offset = (xyz + rng.normal(0, 0.3, xyz.shape)).astype(np.float32)
+    cand = xyz[:, :4096]
+    dist2 = ((cand[:, :, None] - cand[:, None]) ** 2).sum(-1).astype(np.float32)
+    knn_d = rng.random((1, LIB_QUERIES, 3)).astype(np.float32)
+    knn_i = rng.integers(0, LIB_SAMPLE, (1, LIB_QUERIES, 3)).astype(np.int32)
+    feats = rng.standard_normal((1, LIB_SAMPLE, 32)).astype(np.float32)
+    group_idx = rng.integers(0, LIB_CAP, (1, LIB_SAMPLE, 32)).astype(np.int32)
+    inst = np.where(valid[0], rng.integers(-1, 192, LIB_CAP), -100)
+    props = (rng.random((256, LIB_CAP)) < 0.05).astype(np.float32)
+    n_q = LIB_QUERIES
+    cases = {  # name: (function, its arguments; arrays go to the device)
+        "segment_argmin": (segment.segment_argmin, (data, spp, LIB_SPP)),
+        "segment_prod_mask": (segment.segment_prod_mask, (data > 10, spp, LIB_SPP)),
+        "superpoint_major_voting": (segment.superpoint_major_voting, (sem, spp, 19, LIB_SPP)),
+        "devoxelize": (voxelize.devoxelize, (vox, p2v)),
+        "fps_weights_masked": (fps.fps_weights_masked, (xyz, weights, valid, LIB_SAMPLE)),
+        "fps_with_dist_masked": (fps.fps_with_dist_masked,
+                                 (dist2, valid[:, :4096], np.zeros(1, np.int64), 256)),
+        "fps_ia_masked": (fps.fps_ia_masked, (xyz, valid, LIB_SAMPLE)),
+        "fps_hybrid_masked": (fps.fps_hybrid_masked, (xyz, offset, valid, LIB_SAMPLE)),
+        "connected_components": (components.connected_components,
+                                 (group_idx[0] % LIB_SAMPLE, valid[0, :LIB_SAMPLE])),
+        "cluster_points": (components.cluster_points, (xyz[0], valid[0], np.abs(sem) % 3, 0.1)),
+        "knn": (interpolate.knn, (xyz[:, :n_q], xyz[:, :LIB_SAMPLE], valid[:, :n_q],
+                                  valid[:, :LIB_SAMPLE], 3)),
+        "three_interpolate": (interpolate.three_interpolate,
+                              (feats, knn_i, knn_d, valid[:, :n_q])),
+        "gather_points": (interpolate.gather_points, (vox[None], group_idx[:, :, 0])),
+        "group_points": (interpolate.group_points, (vox[None], group_idx)),
+        "mask_iou_on_cluster": (maskiou.mask_iou_on_cluster, (props, inst, 192)),
+        "mask_label": (maskiou.mask_label, (props, inst, 0.25, 192)),
+    }
+    out = {}
+    for name, (fn, args) in cases.items():
+        host = [t(a) if isinstance(a, np.ndarray) else a for a in args]
+        card = [a.to(dev) if torch.is_tensor(a) else a for a in host]
+        fn(*card)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(*card)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = fn(*host)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        worst = 0.0
+        for g, w in zip(got, want):
+            g = g.cpu()
+            if g.dtype.is_floating_point:
+                worst = max(worst, float((g - w).abs().max()) / max(1.0, float(w.abs().max())))
+                if worst > 1e-5:
+                    fail(f"library, {name}: the card's floats differ by {worst:.3g} of scale")
+            elif not torch.equal(g, w):
+                fail(f"library, {name}: the card's {g.dtype} output differs from the CPU's "
+                     f"at {int((g != w).sum())} entries")
+        out[name] = dict(card_ms=card_ms, cpu_ms=cpu_ms, err=worst)
+        print(f"library, {name}: card {card_ms:.3f} ms, host CPU {cpu_ms:.3f} ms, equal"
+              + (f" (floats within {worst:.3g} of scale)" if worst else ""), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx, ok = batching.random_downsample(gen, t(valid[0]).to(dev), LIB_SAMPLE)
+    again = batching.random_downsample(torch.Generator(device=dev).manual_seed(0),
+                                       t(valid[0]).to(dev), LIB_SAMPLE)[0]
+    if (not bool(ok.all()) or not bool(t(valid[0]).to(dev)[idx.long()].all())
+            or len(torch.unique(idx)) != LIB_SAMPLE or not torch.equal(idx, again)):
+        fail("library, random_downsample: not a repeatable subset of the valid points")
+    masks = props[:64] > 0
+    t0 = time.perf_counter()
+    keep = nms.standard_nms_host(props[:64], rng.integers(0, 3, 64), rng.random(64),
+                                 np.ones(LIB_CAP, np.float32))
+    nms_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    runs = rle.rle_encode_batch(masks)
+    rle_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.array_equal(rle.rle_decode(r), m) for r, m in zip(runs, masks)) or not len(keep):
+        fail("library: rle_encode_batch does not round-trip, or standard_nms_host kept nothing")
+    print(f"library, random_downsample on the card: {LIB_SAMPLE} of {LIB_N} valid points, "
+          f"repeatable; host functions: standard_nms_host (64 proposals) {nms_ms:.3f} ms, "
+          f"rle_encode_batch (64 masks) {rle_ms:.3f} ms", flush=True)
+    return out
+
+
+def s3dis_step_alone(dev) -> None:
+    """``s3dis_step_phase`` on the written training rooms, alone."""
+    from gapro_tpu_torch import cuda_build
+    from gapro_tpu_torch.tools import train as port_train
+
+    root = os.path.join(str(cuda_build.BUILD_DIR), "chip_smoke_s3dis")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = s3dis_config(root)
+    write_s3dis(root, cfg.data.label_type)
+    s3dis_step_phase(dev, cfg, port_train.build_dataset(cfg, training=True))
+    shutil.rmtree(root)
+
+
+def in_build_dir(phase, name: str):
+    """``phase(dev, root)`` in a fresh directory ``name`` under the build
+    directory, removed after."""
+    def run(dev, *args):
+        from gapro_tpu_torch import cuda_build
+
+        root = os.path.join(str(cuda_build.BUILD_DIR), name)
+        shutil.rmtree(root, ignore_errors=True)
+        try:
+            return phase(dev, *args, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    return run
+
+
+# phases a development run can take alone: python3 chip_smoke.py --phase NAME[,NAME]
+SINGLE_PHASES = {
+    "s3dis_step": s3dis_step_alone,
+    "labeler_multidev": labeler_multidev_phase,
+    "prepare": in_build_dir(prepare_phase, "chip_smoke_prepare"),
+    "ckpt": lambda dev: in_build_dir(ckpt_phase, "chip_smoke_ckpt")(dev, scene_inputs(0)),
+    "library": library_phase,
+}
+
+
 def main() -> None:
     import torch
 
@@ -3627,6 +4458,13 @@ def main() -> None:
     t0 = time.perf_counter()
     cuda_build.build_all()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc, one process per source)", flush=True)
+    if len(sys.argv) > 2 and sys.argv[1] == "--phase":
+        # a development aid: only the named phases, no result lines
+        for name in sys.argv[2].split(","):
+            SINGLE_PHASES[name](dev)
+        print(f"chip_smoke: phases {sys.argv[2]} passed, {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return
     for name, log in cuda_build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -3861,6 +4699,21 @@ def main() -> None:
     selftrain = selftrain_phase(dev, selftrain_ck, st_root)
     shutil.rmtree(st_root)
     os.unlink(selftrain_ck)
+    torch.cuda.empty_cache()
+
+    # ---- 19. the GP labeler across devices and batch_submit ----------------
+    labeler_multidev_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 20. raw scan -> prepare_scannet -> ScanNetDataset -> a request;
+    # a raw S3DIS room -> prepare_s3dis -> S3DISDataset ---------------------
+    prep = in_build_dir(prepare_phase, "chip_smoke_prepare")(dev)
+
+    # ---- 21. reference checkpoints -> convert_torch_ckpt -> requests -------
+    ckpt = in_build_dir(ckpt_phase, "chip_smoke_ckpt")(dev, scenes[0])
+
+    # ---- 22. the library functions, card against CPU -----------------------
+    library_phase(dev)
 
     tl, t4 = train_launches, trainer["launches"]
     s3t = s3["trainer"]["launches"]
@@ -3936,6 +4789,13 @@ def main() -> None:
                     selftrain_test_launches=st_launches["test --save_pointwise"][count])
     lk = learn["kernels"]
 
+    def slice12(count):
+        """A kernel's launches on PR 12's requests: the prepared raw scan's
+        and the converted ISBNet and SPFormer checkpoints'."""
+        return dict(prepared_scan_launches=prep["launches"][count],
+                    converted_isbnet_launches=ckpt["isbnet"]["launches"][count],
+                    converted_spformer_launches=ckpt["spformer"]["launches"][count])
+
     def learn_shapes(kind):
         """A kernel's numbers at the learning smoke's shapes
         (``learn_kernel_phase``): the conv kernels summed over a forward
@@ -3971,7 +4831,7 @@ def main() -> None:
                   **new_paths("K1", "subm_conv", "k1", "subm_conv_dfeats"),
                   **s3dis_conv("K1", "subm_conv", "subm_conv_dfeats"), **loop_paths("subm_conv"),
                   **{f"{k}_bwd": v for k, v in loop_paths("subm_conv_dfeats").items()},
-                  **learn_shapes("k1"),
+                  **learn_shapes("k1"), **slice12("subm_conv"),
                   **{f"{k}_bwd": v for k, v in learn_shapes("dfeats").items()},
                   **conv_extra(k1, sass.get("subm_conv")))),
             ("subm_conv_dw", "gapro_tpu_torch/csrc/subm_conv_dw.cu",
@@ -3980,6 +4840,7 @@ def main() -> None:
                                       **new_paths("dW", "subm_conv_dw", "dw"),
                                       **s3dis_conv("dW", "subm_conv_dw"),
                                       **loop_paths("subm_conv_dw"), **learn_shapes("dw"),
+                                      **slice12("subm_conv_dw"),
                                       **conv_extra(dw_acc, sass.get("subm_conv_dw")))),
             ("fps", "gapro_tpu_torch/csrc/fps.cu", "gapro_tpu/ops/fps_pallas.py:42", k4,
              launches["fps"], dict(train_launches=tl["fps"], train_b4_launches=t4["fps"],
@@ -4001,7 +4862,7 @@ def main() -> None:
                                    s3dis_merged_kernel_alone_ms=s3k4["kernel_ms"],
                                    s3dis_merged_plain_ms=s3k4["plain_ms"],
                                    s3dis_merged_bound_ms=s3k4["bound"], **loop_paths("fps"),
-                                   **learn_shapes("k4"),
+                                   **learn_shapes("k4"), **slice12("fps"),
                                    sass=sass.get("fps"))),
             ("dyco", "gapro_tpu_torch/csrc/dyco.cu", "gapro_tpu/models/dyco.py:100", k5_req,
              launches["dyco"],
@@ -4019,7 +4880,7 @@ def main() -> None:
                   s3dis_request_device_ms=sum(r["device_ms"] for r in s3k5),
                   s3dis_request_plain_ms=sum(r["plain_ms"] for r in s3k5),
                   s3dis_request_bound_ms=sum(r["bound_ms"] for r in s3k5), **loop_paths("dyco"),
-                  **learn_shapes("k5"),
+                  **learn_shapes("k5"), **slice12("dyco"),
                   sass=sass.get("dyco")))):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, launches=n,

@@ -46,3 +46,18 @@ def gather_dense(values, dense_idx, fill=0.0):
     out = values[torch.where(dense_idx >= 0, dense_idx.long(), spread)]
     mask = (dense_idx >= 0).reshape(dense_idx.shape + (1,) * (out.ndim - dense_idx.ndim))
     return torch.where(mask, out, torch.as_tensor(fill, dtype=out.dtype, device=out.device))
+
+
+def random_downsample(generator: torch.Generator, valid, n_subsample: int):
+    """A random fixed-size subsample of the valid rows (model_utils.py:
+    566-586): indices [n_subsample] int32 and their validity. Each valid row
+    draws a uniform score from ``generator`` (the JAX package takes a PRNG
+    key instead, so the draws differ) and the ``n_subsample`` highest are
+    taken; with fewer valid rows the tail repeats the first pick and is
+    masked."""
+    n = valid.shape[0]
+    scores = torch.rand(n, generator=generator, device=generator.device).to(valid.device)
+    scores = torch.where(valid, scores, -1.0)
+    idx = torch.topk(scores, n_subsample).indices.int()
+    ok = torch.arange(n_subsample, device=valid.device) < valid.sum()
+    return torch.where(ok, idx, idx[0]), ok

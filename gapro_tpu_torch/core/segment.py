@@ -39,10 +39,16 @@ def segment_count(seg_ids, num_segments: int, dtype=torch.float32):
     return segment_sum(ones, seg_ids, num_segments)
 
 
+def _acc_dtype(dtype):
+    """Sums of fp32 and narrower types run in fp32, of fp64 in fp64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def segment_mean(data, seg_ids, num_segments: int, eps: float = 1e-12):
-    """Mean per segment; empty segments give 0. Accumulates in fp32."""
+    """Mean per segment; empty segments give 0. Accumulates in fp32 (fp64
+    for fp64 data)."""
     dtype = data.dtype
-    s = segment_sum(data.float(), seg_ids, num_segments)
+    s = segment_sum(data.to(_acc_dtype(dtype)), seg_ids, num_segments)
     c = segment_count(seg_ids, num_segments)
     c = c.reshape(c.shape + (1,) * (s.ndim - 1))
     return (s / torch.clamp(c, min=eps)).to(dtype)
@@ -50,13 +56,14 @@ def segment_mean(data, seg_ids, num_segments: int, eps: float = 1e-12):
 
 def segment_weighted_mean(data, seg_ids, weights, num_segments: int, eps: float = 1e-12):
     """Weighted mean per segment; empty or zero-weight segments give 0.
-    Accumulates in fp32. With a voxel's member-point count as its weight,
-    this is the mean over the points of each segment, every point carrying
-    its voxel's value (SPFormer's point-resolution superpoint pooling)."""
+    Accumulates in fp32 (fp64 for fp64 data). With a voxel's member-point
+    count as its weight, this is the mean over the points of each segment,
+    every point carrying its voxel's value (SPFormer's point-resolution superpoint pooling)."""
     dtype = data.dtype
-    w = weights.float()
-    data32 = data.float()
-    s = segment_sum(data32 * w.reshape(w.shape + (1,) * (data32.ndim - 1)), seg_ids,
+    acc = _acc_dtype(dtype)
+    w = weights.to(acc)
+    x = data.to(acc)
+    s = segment_sum(x * w.reshape(w.shape + (1,) * (x.ndim - 1)), seg_ids,
                     num_segments)
     c = segment_sum(w, seg_ids, num_segments)
     c = c.reshape(c.shape + (1,) * (s.ndim - 1))
@@ -88,6 +95,28 @@ def segment_max(data, seg_ids, num_segments: int):
     return _segment_extreme(data, seg_ids, num_segments, "amax")
 
 
+def segment_argmin(data, seg_ids, num_segments: int):
+    """Index (into ``data`` [N]) of each segment's minimum, the smallest
+    index on ties; -1 for an empty segment (``torch_scatter.scatter_min``'s
+    argmin, gapro/gen_ps_utils.py:453)."""
+    n = data.shape[0]
+    mins = segment_min(data, seg_ids, num_segments)
+    seg = _route_invalid(seg_ids, num_segments)
+    member = seg < num_segments
+    gathered = torch.where(member, mins[seg.clamp(max=num_segments - 1)],
+                           torch.tensor(float("inf"), dtype=data.dtype, device=data.device))
+    idx = torch.arange(n, dtype=torch.int32, device=data.device)
+    cand = torch.where((data == gathered) & member, idx, n)
+    arg = segment_min(cand, seg_ids, num_segments)
+    return torch.where(arg < n, arg, -1)
+
+
+def segment_prod_mask(mask, seg_ids, num_segments: int):
+    """Logical AND per segment (all members true; an empty segment is
+    true)."""
+    return segment_min(mask.to(torch.int32), seg_ids, num_segments) > 0
+
+
 def compact_unique(ids: torch.Tensor, num_out: int, valid=None):
     """Static-shape ``unique(return_inverse=True)``.
 
@@ -107,3 +136,24 @@ def compact_unique(ids: torch.Tensor, num_out: int, valid=None):
     keep = min(count, num_out)
     uniq[:keep] = uniq_all[:keep].int()
     return uniq, inverse, count
+
+
+def superpoint_major_voting(labels, spp, n_classes: int, num_segments: int,
+                            ignore_label: int = -100):
+    """Majority class per superpoint, broadcast back to points
+    (ISBNet/isbnet/model/model_utils.py:616-644). Ignore labels vote as a
+    class of their own (0) and map back to ``ignore_label``; a class id
+    past ``n_classes`` votes for nothing, as ``jax.nn.one_hot`` gives it no
+    column. Returns (refined labels [N], vote fraction [N])."""
+    dev = labels.device
+    shifted = torch.where(labels >= 0, labels + 1, 0)
+    onehot = (shifted[:, None] == torch.arange(n_classes + 1, device=dev)[None, :]).float()
+    counts = segment_sum(onehot, spp, num_segments)  # [S, C + 1]
+    label_spp = counts.argmax(1)
+    frac_spp = counts / torch.clamp(counts.sum(1, keepdim=True), min=1.0)
+    label_spp = torch.where(label_spp >= 1, label_spp - 1, ignore_label)
+    safe = spp.long().clamp(0, num_segments - 1)
+    refined = torch.where(spp >= 0, label_spp[safe], ignore_label)
+    votes = torch.where(spp >= 0, frac_spp[safe].gather(1, refined.clamp(min=0)[:, None] + 1)[:, 0],
+                        0.0)
+    return refined, votes

@@ -5,6 +5,7 @@ from .pipeline import (
     generate_scene_labels_stream,
     resolve_scene,
     submit_scene,
+    submit_scenes_batched,
 )
 
 __all__ = [
@@ -15,5 +16,6 @@ __all__ = [
     "generate_scene_labels",
     "generate_scene_labels_stream",
     "submit_scene",
+    "submit_scenes_batched",
     "resolve_scene",
 ]

@@ -18,25 +18,34 @@ The work is split as in the JAX package:
 The write-back replays the reference loop's order, so the labels follow its
 serial semantics (a later pair overwrites when it is more confident).
 
-The JAX stage carries a relay transport that is not carried over: it exists
-to cut bytes and round trips to a remote TPU, and the card is local. Here
-the arrays are uploaded as they are: no rgb packed into one f32 column with
-a host-built table (its point was to rebuild the host's ``u / 127.5 - 1``
-bit for bit, which the unpacked features are), no flat single-buffer upload,
-no bit-packed occupancy, no ``submit_scenes_batched`` and no switches
-(``GAPRO_SUBMIT_BATCH``, ``GAPRO_GP_ONE_BUCKET``, ``GAPRO_MERGE_GP_FETCH``),
-and no threads: the card's stream keeps window w's fits in flight while the
-host enumerates window w + 1. Uploads are pinned and asynchronous and each
-result comes back by an asynchronous copy with its own event, so the host
-waits for what it reads and for nothing queued after it.
+The sweep (``generate_scene_labels_stream``) spreads scenes and fit
+groups round-robin over a list of devices, every visible card unless the
+caller names them, as the JAX stage spreads them over ``jax.devices()``.
+The next window is submitted on a background thread while the host
+enumerates this one, its scenes through a small pool of threads;
+``batch_submit`` makes one upload and one occupancy pass per same-shape
+group of a window (``submit_scenes_batched``). The JAX stage's
+environment switches are keyword arguments here, with its defaults.
+
+The JAX stage's relay transport is not carried over: it cut bytes and
+round trips to a remote TPU, and the cards are local. The arrays are
+uploaded as they are: no rgb packed into one f32 column with a host-built
+table (its point was to rebuild the host's ``u / 127.5 - 1`` bit for bit,
+which the unpacked features are), no flat single-buffer upload, no
+bit-packed occupancy, no merged fit-and-occupancy fetch and no
+one-bucket switch. Uploads are pinned and asynchronous and each result
+comes back by an asynchronous copy with its own event, so the host waits
+for what it reads and for nothing queued after it.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -109,6 +118,34 @@ def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t
 
 
+def _on(dev: torch.device):
+    """Make ``dev`` the current card (its stream takes the copies and the
+    events); nothing for the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _devices(device=None, devices=None) -> list:
+    """The sweep's device list: ``devices``, else ``[device]``, else every
+    visible card (``resolve_device`` raises where there is none). A card
+    named without an index is the current one, so that two spellings of
+    one card compare equal."""
+    if devices is None:
+        if device is not None:
+            devices = [device]
+        else:
+            resolve_device(None)
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append(d)
+    if not out:
+        raise ValueError("the device list is empty")
+    return out
+
+
 class _HostCopy:
     """A device tensor's copy to the host, in flight. ``numpy()`` waits for
     this copy alone (its event), not for work queued after it."""
@@ -116,10 +153,11 @@ class _HostCopy:
     def __init__(self, t: torch.Tensor):
         self._event = None
         if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            with _on(t.device):
+                self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self._host.copy_(t, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record()
         else:
             self._host = t
 
@@ -172,6 +210,26 @@ def _occupancy_and_pool(coords, feats, spp_inverse, boxes, n_spps: int, margin: 
     feats_spp = (sums / torch.clamp_min(count, 1.0)[:, None]).float()
     occ_spp = segment_mean(inside.float(), spp_inverse, n_spps)
     return feats_spp, occ_spp >= thresh
+
+
+def _occupancy_and_pool_batched(coords, feats, spp_inverse, boxes, s_cap: int, margin: float,
+                                thresh: float):
+    """``_occupancy_and_pool`` over K scenes padded to one shape: coords
+    [K, N, 3], feats [K, N, D], spp_inverse [K, N] (-1 for padding), boxes
+    [K, B, 6] (padding boxes contain nothing). Returns the pooled features
+    [K, s_cap, D] and the occupancy [K, s_cap, B]. Every superpoint's sum
+    runs over the same points in the same order as one scene's would, so
+    each scene's rows equal its ``_occupancy_and_pool``'s."""
+    k, n, d = feats.shape
+    inside = (torch.all(coords[:, :, None, :] >= boxes[:, None, :, :3] - margin, dim=-1)
+              & torch.all(coords[:, :, None, :] <= boxes[:, None, :, 3:] + margin, dim=-1))
+    base = torch.arange(k, device=coords.device)[:, None] * s_cap
+    seg = torch.where(spp_inverse >= 0, spp_inverse + base, -1).reshape(-1)
+    count = segment_count(seg, k * s_cap, dtype=torch.float64)
+    sums = segment_sum(feats.reshape(k * n, d).double(), seg, k * s_cap)
+    feats_spp = (sums / torch.clamp_min(count, 1.0)[:, None]).float()
+    occ_spp = segment_mean(inside.reshape(k * n, -1).float(), seg, k * s_cap)
+    return feats_spp.view(k, s_cap, d), (occ_spp >= thresh).view(k, s_cap, -1)
 
 
 def _count_overflows(jobs, cfg: LabelerConfig):
@@ -237,24 +295,35 @@ def _group_index(jobs, idxs, tb: int, qb: int, offsets) -> np.ndarray:
     return ibuf
 
 
-def _fit_jobs_submit(jobs, feats_list, cfg: LabelerConfig):
+def _fit_jobs_submit(jobs, feats_list, cfg: LabelerConfig, devices=None):
     """Launch every fit group of ``jobs`` without waiting for any. Rows index
     the concatenation of ``feats_list`` (one [S_i, D] device tensor per
-    scene, ``job.scene`` picks one). Returns the pending state for
-    ``_fit_jobs_fetch``."""
+    scene, ``job.scene`` picks one). Group g runs on ``devices[g % len]``
+    (default: the first scene's device), the window's features copied
+    there once. The groups, their lanes and each job's row draw are those
+    of one device whatever the list, so a fit gives the same result on
+    whichever device runs it. (The JAX stage splits a group by the device
+    of each scene's features instead; the copy here is the window's pooled
+    features, [S, D] a scene.) Returns the pending state for ``_fit_jobs_fetch``."""
     if not jobs:
         return [], 0
     t0 = time.perf_counter()
     _count_overflows(jobs, cfg)
+    devs = list(devices) if devices else [feats_list[0].device]
     offsets = np.cumsum([0] + [f.shape[0] for f in feats_list])
-    flat = feats_list[0] if len(feats_list) == 1 else torch.cat(feats_list)
+    flats = {}
     pending = []
-    for (tb, qb), idxs in _job_buckets(jobs, cfg).items():
-        nqs = [min(len(jobs[j].intersect_inds), qb) for j in idxs]
-        res = _fit_gp_batch_indexed(
-            _upload(_group_index(jobs, idxs, tb, qb, offsets), flat.device), flat, tb, qb,
-            cfg.training_iter, cfg.lr, min(cfg.n_inducing, tb) if cfg.n_inducing else None)
-        pending.append((idxs, nqs, _HostCopy(res)))
+    for g, ((tb, qb), idxs) in enumerate(_job_buckets(jobs, cfg).items()):
+        dev = devs[g % len(devs)]
+        with _on(dev):
+            if dev not in flats:
+                parts = [f.to(dev) for f in feats_list]
+                flats[dev] = parts[0] if len(parts) == 1 else torch.cat(parts)
+            nqs = [min(len(jobs[j].intersect_inds), qb) for j in idxs]
+            res = _fit_gp_batch_indexed(
+                _upload(_group_index(jobs, idxs, tb, qb, offsets), dev), flats[dev], tb, qb,
+                cfg.training_iter, cfg.lr, min(cfg.n_inducing, tb) if cfg.n_inducing else None)
+            pending.append((idxs, nqs, _HostCopy(res)))
     PHASE_STATS["gp_submit"] += time.perf_counter() - t0
     return pending, len(jobs)
 
@@ -329,6 +398,33 @@ def _dense_spp(spp):
     return inverse.astype(np.int64, copy=False), len(uniq)
 
 
+class _HostScene(NamedTuple):
+    """A scene's host half of the submit: its arrays and boxes."""
+
+    coords: np.ndarray
+    gp_feats: np.ndarray
+    spp_inverse: np.ndarray
+    n_spps: int
+    n_fg: int
+    boxes: np.ndarray
+    boxes_cls: np.ndarray
+    boxes_volume: np.ndarray
+
+    def handle(self, feats, occ: _HostCopy) -> _SceneHandle:
+        return _SceneHandle(feats, occ, self.spp_inverse, self.n_spps, len(self.boxes),
+                            self.n_fg, self.boxes, self.boxes_cls, self.boxes_volume)
+
+
+def _host_scene(coords, gp_feats, spp, instance_cls, instance_box, instance_box_volume,
+                wall_box=None, wall_box_volume=None,
+                cfg: LabelerConfig = LabelerConfig()) -> _HostScene:
+    coords = np.asarray(coords, np.float32)
+    boxes, boxes_cls, boxes_volume = _scene_boxes(
+        coords, instance_cls, instance_box, instance_box_volume, wall_box, wall_box_volume, cfg)
+    return _HostScene(coords, np.asarray(gp_feats, np.float32), *_dense_spp(spp),
+                      len(instance_box), boxes, boxes_cls, boxes_volume)
+
+
 def submit_scene(coords, gp_feats, spp, instance_cls, instance_box, instance_box_volume,
                  wall_box=None, wall_box_volume=None, cfg: LabelerConfig = LabelerConfig(),
                  device=None) -> _SceneHandle:
@@ -336,16 +432,66 @@ def submit_scene(coords, gp_feats, spp, instance_cls, instance_box, instance_box
     the occupancy and pooling on ``device`` (``cuda`` unless named) without
     waiting for them."""
     dev = resolve_device(device)
-    coords = np.asarray(coords, np.float32)
-    gp_feats = np.asarray(gp_feats, np.float32)
-    boxes, boxes_cls, boxes_volume = _scene_boxes(
-        coords, instance_cls, instance_box, instance_box_volume, wall_box, wall_box_volume, cfg)
-    spp_inverse, n_spps = _dense_spp(spp)
-    feats, occ = _occupancy_and_pool(
-        _upload(coords, dev), _upload(gp_feats, dev), _upload(spp_inverse, dev),
-        _upload(boxes.astype(np.float32), dev), n_spps, cfg.box_margin, cfg.thresh_spp_occu)
-    return _SceneHandle(feats, _HostCopy(occ), spp_inverse, n_spps, len(boxes),
-                        len(instance_box), boxes, boxes_cls, boxes_volume)
+    h = _host_scene(coords, gp_feats, spp, instance_cls, instance_box, instance_box_volume,
+                    wall_box, wall_box_volume, cfg)
+    with _on(dev):
+        feats, occ = _occupancy_and_pool(
+            _upload(h.coords, dev), _upload(h.gp_feats, dev), _upload(h.spp_inverse, dev),
+            _upload(h.boxes.astype(np.float32), dev), h.n_spps, cfg.box_margin,
+            cfg.thresh_spp_occu)
+        return h.handle(feats, _HostCopy(occ))
+
+
+class _LaneCopy:
+    """One scene's occupancy [S, B] out of its group's [K, s_cap, b_cap]
+    copy in flight (one copy to the host for the group)."""
+
+    def __init__(self, group: _HostCopy, lane: int, n_spps: int, n_boxes: int):
+        self._group, self._lane, self._shape = group, lane, (n_spps, n_boxes)
+
+    def numpy(self) -> np.ndarray:
+        s, b = self._shape
+        return self._group.numpy()[self._lane, :s, :b]
+
+
+def submit_scenes_batched(scene_kwargs, cfg: LabelerConfig = LabelerConfig(),
+                          device=None) -> list:
+    """``submit_scene`` for a window of scenes (dicts of its arguments) with
+    one upload and one occupancy and pooling pass per same-shape group:
+    points, superpoints and boxes padded to buckets (``next_bucket``), the
+    group's scenes stacked on the host and copied to ``device`` at once.
+    Returns handles aligned with ``scene_kwargs``, each scene's results
+    equal to its ``submit_scene``'s."""
+    dev = resolve_device(device)
+    hosts = [_host_scene(cfg=cfg, **kw) for kw in scene_kwargs]
+    groups = {}
+    for i, h in enumerate(hosts):
+        key = (next_bucket(len(h.coords), min_size=1024), next_bucket(h.n_spps, min_size=128),
+               next_bucket(len(h.boxes), min_size=8), h.gp_feats.shape[1])
+        groups.setdefault(key, []).append(i)
+    handles = [None] * len(hosts)
+    for (n_cap, s_cap, b_cap, d), idxs in groups.items():
+        k = len(idxs)
+        coords = np.zeros((k, n_cap, 3), np.float32)
+        feats = np.zeros((k, n_cap, d), np.float32)
+        spp = np.full((k, n_cap), -1, np.int64)
+        boxes = np.zeros((k, b_cap, 6), np.float32)
+        boxes[:, :, :3] = 1.0  # min above max: contains nothing
+        for j, i in enumerate(idxs):
+            h = hosts[i]
+            n = len(h.coords)
+            coords[j, :n], feats[j, :n], spp[j, :n] = h.coords, h.gp_feats, h.spp_inverse
+            boxes[j, :len(h.boxes)] = h.boxes
+        with _on(dev):
+            feats_spp, occ = _occupancy_and_pool_batched(
+                _upload(coords, dev), _upload(feats, dev), _upload(spp, dev),
+                _upload(boxes, dev), s_cap, cfg.box_margin, cfg.thresh_spp_occu)
+            occ_host = _HostCopy(occ)
+        for j, i in enumerate(idxs):
+            h = hosts[i]
+            handles[i] = h.handle(feats_spp[j, :h.n_spps],
+                                  _LaneCopy(occ_host, j, h.n_spps, len(h.boxes)))
+    return handles
 
 
 class _SceneResolution(NamedTuple):
@@ -506,20 +652,26 @@ def generate_scene_labels(coords, gp_feats, spp, instance_cls, instance_box,
 
 
 def generate_scene_labels_stream(scene_iter, cfg: LabelerConfig = LabelerConfig(),
-                                 window: int = 4, device=None):
-    """Windowed sweep over ``scene_iter`` on one device (``cuda`` unless named).
+                                 window: int = 4, device=None, devices=None,
+                                 batch_submit: bool = False, submit_threads: int = 4):
+    """Windowed sweep over ``scene_iter``, spread over ``devices`` (every
+    visible card unless named; ``device`` names one).
 
-    Scenes go in windows of ``window``. Window w + 1's occupancy is
-    launched before window w's fits, so reading it never waits for them;
-    all fits of a window go into one cross-scene bucketed set of launches
-    (the jobs numbered across the window, which seeds their row draws), and
-    they run on the card while the host enumerates window w + 1.
+    Scenes go in windows of ``window``, round-robin over the devices by
+    their position in the sweep. Window w + 1 is submitted on a background
+    thread (its scenes through a pool of ``submit_threads``, or with
+    ``batch_submit`` one ``submit_scenes_batched`` call per device) while
+    the host enumerates window w; all fits of a window go into one
+    cross-scene bucketed set of launches (the jobs numbered across the
+    window, which seeds their row draws), the groups round-robin over the
+    devices, and they run while the host enumerates window w + 1. The
+    labels do not depend on the device list.
 
     ``scene_iter`` yields dicts of ``submit_scene``'s arguments (coords,
     gp_feats, spp, instance_cls, instance_box, instance_box_volume [,
     wall_box, wall_box_volume]); yields (scene_dict, labels_tuple) in order.
     """
-    dev = resolve_device(device)
+    devs = _devices(device, devices)
     it = iter(scene_iter)
     window = max(window, 1)
 
@@ -532,9 +684,18 @@ def generate_scene_labels_stream(scene_iter, cfg: LabelerConfig = LabelerConfig(
             out.append(s)
         return out
 
-    def submit_window(scenes):
+    def submit_window(scenes, base):
         t0 = time.perf_counter()
-        handles = [submit_scene(cfg=cfg, device=dev, **s) for s in scenes]
+        on = [devs[(base + i) % len(devs)] for i in range(len(scenes))]
+        if batch_submit:
+            handles = [None] * len(scenes)
+            for dev in dict.fromkeys(on):
+                idxs = [i for i, d in enumerate(on) if d == dev]
+                for i, h in zip(idxs, submit_scenes_batched([scenes[i] for i in idxs], cfg, dev)):
+                    handles[i] = h
+        else:
+            handles = list(pool.map(lambda i: submit_scene(cfg=cfg, device=on[i], **scenes[i]),
+                                    range(len(scenes))))
         PHASE_STATS["submit"] += time.perf_counter() - t0
         return handles
 
@@ -546,27 +707,32 @@ def generate_scene_labels_stream(scene_iter, cfg: LabelerConfig = LabelerConfig(
         resolutions = [enumerate_scene(h, cfg, occupancy_np=o) for h, o in zip(handles, occs)]
         jobs = [j._replace(scene=si) for si, res in enumerate(resolutions) for j in res.jobs]
         PHASE_STATS["enumerate"] += time.perf_counter() - t1
-        return resolutions, _fit_jobs_submit(jobs, [r.feats_spp for r in resolutions], cfg)
+        return resolutions, _fit_jobs_submit(jobs, [r.feats_spp for r in resolutions], cfg, devs)
 
-    cur_scenes = take()
-    cur_handles = submit_window(cur_scenes)
-    prev = None  # previous window: (scenes, resolutions, fits in flight)
-    while cur_scenes or prev is not None:
-        if cur_scenes:
-            nxt_scenes = take()
-            nxt_handles = submit_window(nxt_scenes)
-            cur_state = (cur_scenes, *enumerate_and_submit(cur_handles))
-        else:
-            nxt_scenes, nxt_handles, cur_state = [], [], None
-        if prev is not None:
-            prev_scenes, prev_res, prev_pending = prev
-            results = _fit_jobs_fetch(prev_pending)
-            t0 = time.perf_counter()
-            off = 0
-            for scene, res in zip(prev_scenes, prev_res):
-                k = len(res.jobs)
-                yield scene, writeback_scene(res, results[off:off + k], cfg)
-                off += k
-            PHASE_STATS["writeback"] += time.perf_counter() - t0
-        prev = cur_state
-        cur_scenes, cur_handles = nxt_scenes, nxt_handles
+    # The scene iterator stays on this thread; the pools only submit.
+    with ThreadPoolExecutor(max_workers=1) as ahead, \
+            ThreadPoolExecutor(max_workers=max(1, min(window, submit_threads))) as pool:
+        base = 0
+        cur_scenes = take()
+        cur_handles = submit_window(cur_scenes, base)
+        prev = None  # previous window: (scenes, resolutions, fits in flight)
+        while cur_scenes or prev is not None:
+            if cur_scenes:
+                base += len(cur_scenes)
+                nxt_scenes = take()
+                nxt = ahead.submit(submit_window, nxt_scenes, base)
+                cur_state = (cur_scenes, *enumerate_and_submit(cur_handles))
+            else:
+                nxt_scenes, nxt, cur_state = [], None, None
+            if prev is not None:
+                prev_scenes, prev_res, prev_pending = prev
+                results = _fit_jobs_fetch(prev_pending)
+                t0 = time.perf_counter()
+                off = 0
+                for scene, res in zip(prev_scenes, prev_res):
+                    k = len(res.jobs)
+                    yield scene, writeback_scene(res, results[off:off + k], cfg)
+                    off += k
+                PHASE_STATS["writeback"] += time.perf_counter() - t0
+            prev = cur_state
+            cur_scenes, cur_handles = nxt_scenes, (nxt.result() if nxt is not None else [])

@@ -128,7 +128,7 @@ def build_targets(voxel_instance, voxel_semantic, coords_float, spp, batch_idx, 
     d_masks = torch.where(gt_valid[..., None], d_masks, 0.0)
 
     def pool_flat(x):
-        x = x.float()
+        x = x.to(torch.promote_types(x.dtype, torch.float32))  # fp64 stays fp64
         if pool == "max":
             neg = -1e10
             out = segment_max(torch.where(valid.reshape(valid.shape + (1,) * (x.ndim - 1)), x,

@@ -7,6 +7,10 @@ past the number of valid points repeat the first index and are marked
 invalid.
 
 * ``fps_masked``: the plain PyTorch version of kernel K4.
+* ``fps_weights_masked``, ``fps_with_dist_masked``, ``fps_ia_masked`` and
+  ``fps_hybrid_masked``: the pointnet2 variants, plain PyTorch (none
+  reaches the Pallas kernel in the JAX package); ``fps_ia_masked`` on 3-D
+  points is ``fps``, so K4 on the card.
 * ``fps_cuda``: K4's wrapper (``csrc/fps.cu``). For a CPU tensor it takes
   ``fps_masked``; for a CUDA tensor it compacts each item's valid points
   (``compact_valid``), launches the kernel on them and maps the indices
@@ -170,3 +174,106 @@ def fps(xyz, valid, n_sample: int):
     """Dispatching FPS used by the model: K4 on the card, the plain version
     for CPU tensors."""
     return fps_cuda(xyz, valid, n_sample)
+
+
+def _sq_dist(pts, rows, last):
+    """Each point's squared distance to its item's point ``last``: for 3-D
+    points three products and two adds in order, as ``fps_masked``."""
+    d = pts - pts[rows, last][:, None]
+    if pts.shape[-1] == 3:
+        return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    return (d * d).sum(-1)
+
+
+def _sample_loop(n_sample: int, first, step):
+    """Run ``step(i, last) -> next`` from ``first`` [B] for ``n_sample``
+    steps; returns the picks [B, n_sample] int32."""
+    out = torch.empty((first.shape[0], n_sample), dtype=torch.int32, device=first.device)
+    last = first
+    for i in range(n_sample):
+        out[:, i] = last
+        last = step(i, last)
+    return out
+
+
+def _repeat_first(out, first, valid, n_sample: int):
+    sample_valid = (torch.arange(n_sample, device=valid.device)[None, :]
+                    < valid.sum(1)[:, None])
+    return torch.where(sample_valid, out, first.int()[:, None]), sample_valid
+
+
+def fps_weights_masked(xyz, weights, valid, n_sample: int):
+    """Weighted FPS (``furthest_point_sampling_weights``,
+    pointnet2/_ext_src/src/sampling_gpu.cu): each step takes the argmax of
+    the running distance times a per-point weight, from the valid point of
+    the largest weight. [B, N, 3], [B, N], [B, N] -> (indices [B,
+    n_sample] int32, sample_valid)."""
+    rows = torch.arange(xyz.shape[0], device=xyz.device)
+    dist = torch.where(valid, torch.tensor(1e10, device=xyz.device), -1.0)
+    first = torch.where(valid, weights, -1.0).argmax(1)
+
+    def step(i, last):
+        nonlocal dist
+        dist = torch.where(valid, torch.minimum(dist, _sq_dist(xyz, rows, last)), -1.0)
+        return torch.where(valid, dist * weights, -1.0).argmax(1)
+
+    return _repeat_first(_sample_loop(n_sample, first, step), first, valid, n_sample)
+
+
+def fps_with_dist_masked(dist2, valid, start_idx, n_sample: int):
+    """FPS over a precomputed squared-distance matrix [B, N, N]
+    (``furthest_point_sampling_with_dist``, sampling_gpu.cu), from
+    ``start_idx`` [B]."""
+    rows = torch.arange(dist2.shape[0], device=dist2.device)
+    dist = torch.where(valid, torch.tensor(1e10, device=dist2.device), -1.0)
+    first = start_idx.long()
+
+    def step(i, last):
+        nonlocal dist
+        dist = torch.where(valid, torch.minimum(dist, dist2[rows, last]), -1.0)
+        return dist.argmax(1)
+
+    return _repeat_first(_sample_loop(n_sample, first, step), first, valid, n_sample)
+
+
+def fps_ia_masked(feats, valid, n_sample: int):
+    """Instance-aware FPS over D-dim point features [B, N, D] (the
+    reference's ``furthestsampling_ia_batchflat``, ISBNet/isbnet/ops/
+    functions.py:495-513): FPS with the squared distance over all D dims.
+    3-D features go through ``fps`` (K4 on the card); others through the
+    same masked loop in plain PyTorch."""
+    if feats.shape[-1] == 3:
+        return fps(feats, valid, n_sample)
+    rows = torch.arange(feats.shape[0], device=feats.device)
+    dist = torch.where(valid, torch.tensor(1e10, device=feats.device), -1.0)
+    first = valid.int().argmax(1)
+
+    def step(i, last):
+        nonlocal dist
+        dist = torch.where(valid, torch.minimum(dist, _sq_dist(feats, rows, last)), -1.0)
+        return dist.argmax(1)
+
+    return _repeat_first(_sample_loop(n_sample, first, step), first, valid, n_sample)
+
+
+def fps_hybrid_masked(xyz, xyz_offset, valid, n_sample: int, ratio: float = 2.0):
+    """Hybrid FPS (``furthest_point_sampling_hybrid``, ISBNet/isbnet/
+    pointnet2/_ext_src/src/sampling_gpu.cu:409-480): step j measures by
+    ``xyz`` while ``(j + 1) * ratio < n_sample`` and by ``xyz_offset``
+    after, sharing one running distance; points whose active coords have
+    |p|^2 <= 1e-3 sit that step out (keep their distance, cannot win)."""
+    rows = torch.arange(xyz.shape[0], device=xyz.device)
+    dist = torch.where(valid, torch.tensor(1e10, device=xyz.device), -1.0)
+    mag_a = (xyz * xyz).sum(-1) > 1e-3
+    mag_o = (xyz_offset * xyz_offset).sum(-1) > 1e-3
+    first = valid.int().argmax(1)
+
+    def step(j, last):
+        nonlocal dist
+        use_a = (j + 1) * ratio < n_sample
+        pts, mag = (xyz, mag_a) if use_a else (xyz_offset, mag_o)
+        upd = valid & mag
+        dist = torch.where(upd, torch.minimum(dist, _sq_dist(pts, rows, last)), dist)
+        return torch.where(upd, dist, -1.0).argmax(1)
+
+    return _repeat_first(_sample_loop(n_sample, first, step), first, valid, n_sample)

@@ -8,6 +8,7 @@ within a superpoint. Sorts are stable, as ``jnp.argsort`` and
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -50,3 +51,22 @@ def matrix_nms(masks, categories, scores, weights, topk: int, sigma: float = 2.0
     top_scores, top_idx = stable_topk(new_scores, topk)
     keep = torch.isfinite(top_scores)
     return order[top_idx], torch.where(keep, top_scores, 0.0), keep
+
+
+def standard_nms_host(masks, categories, scores, weights, threshold=0.2):
+    """Greedy class-aware mask NMS on the host (numpy). Returns the kept
+    indices, the highest score first."""
+    masks = np.asarray(masks, np.float32) * np.asarray(weights)[None, :]
+    bin_masks = np.asarray(masks > 0, np.float32)
+    inter = masks @ bin_masks.T
+    num = masks.sum(1)
+    ious = inter / np.maximum(num[:, None] + num[None, :] - inter, 1e-6)
+    categories = np.asarray(categories)
+    ixs = np.argsort(-np.asarray(scores))
+    pick = []
+    while len(ixs) > 0:
+        i = ixs[0]
+        pick.append(int(i))
+        rest = ixs[1:]
+        ixs = rest[~((ious[i, rest] > threshold) & (categories[rest] == categories[i]))]
+    return np.asarray(pick, np.int64)

@@ -72,3 +72,12 @@ def voxel_gather_first(values, maps: VoxelMaps):
     out = values[maps.voxel_first_point.clamp(min=0).long()]
     mask = maps.valid_voxel.reshape((-1,) + (1,) * (out.ndim - 1))
     return torch.where(mask, out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def devoxelize(voxel_feats, point2voxel):
+    """Gather voxel features back to points, 0 where a point has no voxel
+    (the reference's ``point_recover``, SPFormer/spformer/lib/pointgroup_ops/
+    pointgroup_ops.py:80-115)."""
+    out = voxel_feats[point2voxel.long().clamp(min=0)]
+    mask = (point2voxel >= 0).reshape(point2voxel.shape + (1,) * (out.ndim - 1))
+    return torch.where(mask, out, torch.zeros((), dtype=out.dtype, device=out.device))

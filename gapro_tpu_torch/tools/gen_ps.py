@@ -6,7 +6,8 @@
 Real data: each ``<data_root>/<split>/*_inst_nostuff.pth`` scene gets its
 boxes from the GT instances, axis alignment from ``scans_transform`` and
 wall boxes from ``scannet_planes``, goes through
-``generate_scene_labels_stream`` (window 4), and its (sem, inst, prob, mu,
+``generate_scene_labels_stream`` (window 4, over every visible card with
+``--device cuda``), and its (sem, inst, prob, mu,
 var) 5-tuple is saved to ``<save_folder>/<scan>.pth``. Scenes whose output
 exists are skipped. ``--synthetic N`` labels N synthetic rooms instead and
 scores them against their GT. ``--eval_pslabel`` prints the instance mIoU of
@@ -96,7 +97,9 @@ def main(argv=None) -> int:
     ap.add_argument("--training_iter", type=int, default=50)
     ap.add_argument("--synthetic", type=int, default=0,
                     help="label N synthetic scenes instead of real data")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default: the sweep over real scenes spreads over every "
+                         "visible card), cuda:N for one card, or cpu")
     args = ap.parse_args(argv)
 
     cfg = LabelerConfig(training_iter=args.training_iter)
@@ -135,7 +138,8 @@ def main(argv=None) -> int:
                 yield kw
 
         for i, (_, out) in enumerate(generate_scene_labels_stream(
-                strip_meta(real_scenes(args, files)), cfg, window=WINDOW, device=args.device)):
+                strip_meta(real_scenes(args, files)), cfg, window=WINDOW,
+                device=None if args.device == "cuda" else args.device)):
             scan, save_path, sem_gt, inst_gt = meta[i]
             sem, inst, prob, mu, var, _ = out
             scannet_io.save_pseudo_labels(save_path, sem, inst, prob, mu, var)

@@ -64,6 +64,7 @@ from ..train.config import load_config
 from ..train.state import cosine_lr_after_step, create_train_state, poly_lr
 from ..train.step import (_loss_fn, _spformer_loss_fn, make_dp_train_step,
                           make_spformer_train_step, make_train_step)
+from ..utils import profiling
 
 
 def _model_kwargs(cfg) -> dict:
@@ -263,7 +264,8 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
             n_iter, meters = 0, {}
             prof = None
             if profile and lead and epoch == start_epoch:
-                prof = prof_stack.enter_context(_profiler(dev))
+                prof = prof_stack.enter_context(profiling.trace(osp.join(work_dir, "trace"),
+                                                                cuda=dev.type == "cuda"))
             if group is not None:
                 # each rank loads its own scene of the world batch
                 loader = build_rank_loader(dataset, group.world_size, group.rank,
@@ -293,9 +295,9 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
                 if on_step is not None:
                     on_step(vals)
                 if prof is not None and n_iter == profile:
-                    prof = _finish_profile(prof, prof_stack, work_dir, dev, log)
+                    prof = _finish_profile(prof_stack, dev, log)
             if prof is not None:  # the epoch had fewer than ``profile`` steps
-                prof = _finish_profile(prof, prof_stack, work_dir, dev, log)
+                prof = _finish_profile(prof_stack, dev, log)
             dt = time.time() - t0
             means = {k: v / max(n_iter, 1) for k, v in meters.items()}
             log.info("epoch %d/%d loss %.4f lr %.2e (%.1fs, %d iters) | %s", epoch, epochs,
@@ -327,22 +329,16 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
                 step_s=step_s)
 
 
-def _finish_profile(prof, prof_stack, work_dir, dev, log) -> None:
-    """Stop the profiler and write its trace; returns None for ``prof``."""
+def _finish_profile(prof_stack, dev, log) -> None:
+    """Stop the profiler (its trace goes to ``<work_dir>/trace/trace.json``)
+    and log the card's memory, as the JAX trainer does; returns None for
+    ``prof``."""
     prof_stack.close()
-    trace = osp.join(work_dir, "trace", "trace.json")
-    os.makedirs(osp.dirname(trace), exist_ok=True)
-    prof.export_chrome_trace(trace)
-    if dev.type == "cuda":
-        log.info("device memory peak: %.0f MiB", torch.cuda.max_memory_allocated(dev) / 2**20)
+    mem = profiling.device_memory_stats(dev)
+    if mem:
+        log.info("device memory: %.0f MiB in use, %.0f MiB peak", mem["bytes_in_use"] / 2**20,
+                 mem["peak_bytes_in_use"] / 2**20)
     return None
-
-
-def _profiler(dev):
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    return profile(activities=acts)
 
 
 def state_digest(state) -> str:

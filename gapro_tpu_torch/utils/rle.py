@@ -4,8 +4,8 @@ The reference exporter's wire format: ``{"length": N, "counts": [start,
 length, ...]}`` with 1-based run starts. ``rle_encode_rows`` encodes a batch
 of masks where they lie: the runs are found on the device and only they
 cross to the host, not the [K, N] masks. ``rle_encode`` is the same for
-one host mask, and ``rle_decode`` the numpy inverse, for evaluation and
-export.
+one host mask (``rle_encode_batch`` for the rows of a host array), and
+``rle_decode`` the numpy inverse, for evaluation and export.
 """
 
 from __future__ import annotations
@@ -39,6 +39,11 @@ def rle_encode(mask) -> dict:
     runs = np.flatnonzero(padded[1:] != padded[:-1]) + 1
     runs[1::2] -= runs[::2]
     return dict(length=int(mask.shape[0]), counts=runs.astype(np.int64))
+
+
+def rle_encode_batch(masks) -> list:
+    """``rle_encode`` of each row of a [K, N] host mask array."""
+    return [rle_encode(m) for m in np.asarray(masks)]
 
 
 def rle_decode(rle: dict) -> np.ndarray:

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import gapro_tpu_torch
-from gapro_tpu_torch.labeler import generate_scene_labels
+from gapro_tpu_torch.labeler import generate_scene_labels, generate_scene_labels_stream
 from gapro_tpu_torch.models import isbnet, prepare, spformer
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -34,7 +34,13 @@ def test_port_imports_no_jax():
             "gapro_tpu_torch.labeler.pipeline", "gapro_tpu_torch.eval.pseudo",
             "gapro_tpu_torch.tools.gen_ps", "gapro_tpu_torch.models.spformer",
             "gapro_tpu_torch.losses.spformer_criterion",
-            "gapro_tpu_torch.eval.point_wise_eval", "gapro_tpu_torch.eval.s3dis_eval"} <= set(mods)
+            "gapro_tpu_torch.eval.point_wise_eval", "gapro_tpu_torch.eval.s3dis_eval",
+            "gapro_tpu_torch.native.segmentator", "gapro_tpu_torch.data.ply",
+            "gapro_tpu_torch.utils.logger", "gapro_tpu_torch.utils.profiling",
+            "gapro_tpu_torch.ops.components", "gapro_tpu_torch.ops.interpolate",
+            "gapro_tpu_torch.ops.maskiou", "gapro_tpu_torch.tools.prepare_scannet",
+            "gapro_tpu_torch.tools.prepare_s3dis",
+            "gapro_tpu_torch.tools.convert_torch_ckpt"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -67,3 +73,6 @@ def test_labeler_raises_without_a_card(monkeypatch):
         generate_scene_labels(xyz, xyz, [0, 1], np.array([0]),
                               np.array([[0, 0, 0, 1, 1, 1]], np.float32),
                               np.array([1.0], np.float32))
+    # the sweep's default device list is every visible card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        list(generate_scene_labels_stream(iter([])))

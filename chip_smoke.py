@@ -121,11 +121,20 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
     world-size-1 NCCL group's step, equal bit for bit to
     ``make_train_step``'s, then ``tools/train.py:train_dp``
     with 2 ranks for an epoch of 8 scenes with validation on one and a
-    resume, each rank's step times printed;
+    resume, each rank's step times printed; then the same for SPFormer
+    (``_spformer_loss_fn``, ``make_spformer_train_step``, its config);
 18. the self-training loop at full width on 2 bench scenes written in
     ScanNet's layout: ``export_features`` from phase 9's trained weights,
     ``gen_ps --use_deepfeat``, an epoch on the labels it wrote, and the
-    test CLI with ``--save_pointwise``, each stage timed.
+    test CLI with ``--save_pointwise``, each stage timed;
+19-22. the labeler across device lists, raw-data preparation, the
+    reference-checkpoint loader, the library functions;
+23. the multi-device dry run (``tools/dryrun_dp.py``) at 4 gloo ranks
+    sharing the card: every ``ovf_*`` 0 on every rank, the ranks equal bit
+    for bit, rank 0's reduction against an emulation within the noise gate;
+24. the visualization CLI on the test CLI's exports of 2 full-width
+    scenes: the eight tasks in PLY and HTML, point counts, the
+    ``instance_pred`` colours against the masks, ``write_ply`` timed.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -451,14 +460,9 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
-    from gapro_tpu_torch.models import dyco
-    from gapro_tpu_torch.ops import fps as fps_ops
-    from gapro_tpu_torch.sparse import conv
+    from gapro_tpu_torch.cuda_build import launch_counts
 
-    return {"subm_conv": conv.subm_conv_cuda.launches,
-            "subm_conv_dfeats": conv.subm_conv_dfeats_cuda.launches,
-            "subm_conv_dw": conv.subm_conv_dw_cuda.launches, "fps": fps_ops.fps_cuda.launches,
-            "dyco": dyco.dyco_cuda.launches}
+    return launch_counts()
 
 
 def k1_shape_counts(cfg, caps):
@@ -3326,19 +3330,31 @@ def learn_phase(dev) -> dict:
     return out
 
 
-def dp_step_rank(rank, init_method, results, device_type, cfg, bufs, shrink, inst_cap,
+def dp_model(cfg, device):
+    """The model of ``cfg`` (an ``ISBNetConfig`` or an ``SPFormerConfig``),
+    its weights from seed 0, and its step's loss function."""
+    from gapro_tpu_torch.models import isbnet
+    from gapro_tpu_torch.models.spformer import SPFormer, SPFormerConfig
+    from gapro_tpu_torch.train import step
+
+    if isinstance(cfg, SPFormerConfig):
+        return SPFormer(cfg, seed=0, device=device), step._spformer_loss_fn
+    return isbnet.ISBNet(cfg, seed=0, device=device), step._loss_fn
+
+
+def dp_step_rank(rank, init_method, results, device_type, cfg, crit, bufs, shrink,
                  out_dir) -> None:
     """One of the two ranks of ``dp_step_phase``: a gloo group on one card;
-    for each of DP_WEIGHTS, the model from seed 0, replicated from rank 0,
-    one ``make_dp_train_step`` step on this rank's buffer, timed by stage
-    with the counts zeroed just before and read just after. Rank 0 saves
-    the reduced gradients, statistics, losses and parameters; every rank
+    for each of DP_WEIGHTS, the model of ``cfg`` from seed 0 (``dp_model``:
+    ISBNet or SPFormer, with its loss), replicated from rank 0, one
+    ``make_dp_train_step`` step on this rank's buffer, timed by stage with
+    the counts zeroed just before and read just after. Rank 0 saves the
+    reduced gradients, statistics, losses and parameters; every rank
     reports its assignment, stage times, launches and state digest."""
     import torch
     import torch.distributed as dist
 
-    from gapro_tpu_torch.losses.criterion import CriterionConfig
-    from gapro_tpu_torch.models import isbnet, prepare
+    from gapro_tpu_torch.models import prepare
     from gapro_tpu_torch.parallel.mesh import data_parallel_mesh, replicate
     from gapro_tpu_torch.tools.train import state_digest
     from gapro_tpu_torch.train import state, step
@@ -3349,13 +3365,13 @@ def dp_step_rank(rank, init_method, results, device_type, cfg, bufs, shrink, ins
     try:
         summary = []
         for i, w in enumerate(DP_WEIGHTS):
-            model = isbnet.ISBNet(cfg, seed=0, device=group.device)
+            model, model_loss = dp_model(cfg, group.device)
             replicate(model, group)
             st = state.create_train_state(model, lr=TRAIN_LR)
             assigns, stamps = [], []
 
-            def loss_fn(m, prepared, crit, mark):
-                res = step._loss_fn(m, prepared, crit, mark=mark)
+            def loss_fn(m, prepared, crit, mark, model_loss=model_loss):
+                res = model_loss(m, prepared, crit, mark=mark)
                 assigns.append(res[1][1]["assign"].cpu())
                 return res
 
@@ -3365,7 +3381,7 @@ def dp_step_rank(rank, init_method, results, device_type, cfg, bufs, shrink, ins
                 stamps.append((name, time.perf_counter()))
 
             dp_step = step.make_dp_train_step(
-                model, CriterionConfig(inst_cap=inst_cap), group, loss_fn=loss_fn,
+                model, crit, group, loss_fn=loss_fn,
                 prepare_fn=prepare.packed_prepare(cfg.unet_levels, cfg.spp_cap, shrink),
                 on_stage=mark)
             buf = torch.from_numpy(bufs[i][rank]).to(group.device)
@@ -3456,8 +3472,10 @@ def equal_step(got: tuple, want: tuple, what: str, noise_fn) -> str:
             f"bit for bit")
 
 
-def dp_step_phase(dev, cfg, pbs, what: str, shrink=FULL_SHRINK, inst_cap: int = INST_CAP) -> dict:
-    """The data-parallel step (``train/step.py:make_dp_train_step``) on two
+def dp_step_phase(dev, cfg, pbs, what: str, shrink=FULL_SHRINK, crit=None) -> dict:
+    """The data-parallel step (``train/step.py:make_dp_train_step``) of the
+    model of ``cfg`` (ISBNet, or SPFormer with ``_spformer_loss_fn``;
+    ``crit`` its criterion's config, ISBNet's at INST_CAP by default) on two
     gloo ranks on one card, against an emulation in this process: each
     scene's kernel-path step from the same initial weights (seed 0), with
     that rank's own assignment, reduced by the same formula, at each of
@@ -3469,21 +3487,24 @@ def dp_step_phase(dev, cfg, pbs, what: str, shrink=FULL_SHRINK, inst_cap: int = 
     parameters must equal AdamW's on the emulation's gradients bit for bit.
     Both ranks' states must agree bit for bit. Then a world-size-1 NCCL
     group in this process: the same step on scene 0, equal bit for bit to
-    ``make_train_step``'s. ``pbs``: the two scenes' point batches. Returns
-    the ranks' stage times and launches."""
+    the single-device step's (``make_train_step``, or
+    ``make_spformer_train_step``). ``pbs``: the two scenes' point batches.
+    Returns the ranks' stage times and launches."""
     import torch
     import torch.distributed as dist
 
     from gapro_tpu_torch import cuda_build
     from gapro_tpu_torch.losses.criterion import CriterionConfig
-    from gapro_tpu_torch.models import isbnet, prepare
+    from gapro_tpu_torch.models import prepare
+    from gapro_tpu_torch.models.spformer import SPFormerConfig
     from gapro_tpu_torch.parallel.mesh import (data_parallel_mesh, free_port, replicate,
                                                spawn_ranks)
     from gapro_tpu_torch.train import state, step
 
     if dev.type == "cuda":
         cuda_build.build_all()  # once, here: the ranks only load the libraries
-    crit = CriterionConfig(inst_cap=inst_cap)
+    crit = crit or CriterionConfig(inst_cap=INST_CAP)
+    spformer = isinstance(cfg, SPFormerConfig)
     packed = [prepare.pack_point_batch_np(pb) for pb in pbs]
     bufs = [[packed[0], packed[1]], [packed[0], packed[0]]]
     out_dir = os.path.join(str(cuda_build.BUILD_DIR), "chip_smoke_dp")
@@ -3491,7 +3512,7 @@ def dp_step_phase(dev, cfg, pbs, what: str, shrink=FULL_SHRINK, inst_cap: int = 
     os.makedirs(out_dir)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = spawn_ranks(dp_step_rank, 2, dev.type, cfg, bufs, shrink, inst_cap, out_dir,
+    ranks = spawn_ranks(dp_step_rank, 2, dev.type, cfg, crit, bufs, shrink, out_dir,
                         timeout_s=900.0)
     print(f"{what}: two ranks on {ranks[0]['device']} and {ranks[1]['device']}, backend "
           f"{ranks[0]['backend']}; spawn to exit {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3500,7 +3521,7 @@ def dp_step_phase(dev, cfg, pbs, what: str, shrink=FULL_SHRINK, inst_cap: int = 
     prepared_of = lambda buf: prepare_fn(torch.from_numpy(buf).to(dev))
 
     runs = {}  # (scene, assignment) -> its run
-    one = lambda p, assign: one_step_grads(isbnet.ISBNet(cfg, seed=0, device=dev), p, crit,
+    one = lambda p, assign: one_step_grads(dp_model(cfg, dev)[0], p, crit,
                                            assign=torch.from_numpy(assign).to(dev))[0]
 
     def scene_run(scene, assign):
@@ -3518,7 +3539,7 @@ def dp_step_phase(dev, cfg, pbs, what: str, shrink=FULL_SHRINK, inst_cap: int = 
 
     def adamw(grads):
         """The parameters after one AdamW step from seed 0 on ``grads``."""
-        model = isbnet.ISBNet(cfg, seed=0, device=dev)
+        model = dp_model(cfg, dev)[0]
         st = state.create_train_state(model, lr=TRAIN_LR)
         for k, p in model.named_parameters():
             p.grad = None if grads[k] is None else grads[k].to(dev)
@@ -3561,10 +3582,11 @@ def dp_step_phase(dev, cfg, pbs, what: str, shrink=FULL_SHRINK, inst_cap: int = 
     # a world-size-1 NCCL group: the backend a run with a card a rank takes
     group = data_parallel_mesh(1, 0, f"tcp://localhost:{free_port()}", dev.type)
     try:
-        model = isbnet.ISBNet(cfg, seed=0, device=dev)
+        model, loss_fn = dp_model(cfg, dev)
         replicate(model, group)
         st = state.create_train_state(model, lr=TRAIN_LR)
-        dp_step = step.make_dp_train_step(model, crit, group, prepare_fn=prepare_fn)
+        dp_step = step.make_dp_train_step(model, crit, group, loss_fn=loss_fn,
+                                          prepare_fn=prepare_fn)
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3576,33 +3598,36 @@ def dp_step_phase(dev, cfg, pbs, what: str, shrink=FULL_SHRINK, inst_cap: int = 
         got_params = {k: p.detach().clone() for k, p in model.named_parameters()}
     finally:
         dist.destroy_process_group()
-    single = isbnet.ISBNet(cfg, seed=0, device=dev)
+    single = dp_model(cfg, dev)[0]
     sst = state.create_train_state(single, lr=TRAIN_LR)
-    sst, slosses = step.make_train_step(single, crit)(sst, prepared_of(packed[0]), TRAIN_LR)
+    make_single = step.make_spformer_train_step if spformer else step.make_train_step
+    sst, slosses = make_single(single, crit)(sst, prepared_of(packed[0]), TRAIN_LR)
     want = ({k: float(v) for k, v in slosses.items()}, *grads_and_stats(single))
     zero_fill(got[1], [want[1]])
-    label = f"{what}, NCCL world size 1 vs make_train_step"
+    label = f"{what}, NCCL world size 1 vs {make_single.__name__}"
     summary = equal_step(got, want, label, lambda: noise_runs(
         [0], [ranks[0]["steps"][0]["assign"]], [1.0], got[1]))
     same_params(got_params, {k: p.detach().cpu() for k, p in single.named_parameters()}, label)
     print(f"{what}: a world-size-1 group, backend {group.backend}: the step {nccl_ms:.1f} ms, "
-          f"launches {out['nccl_launches']}; against make_train_step: {summary}, and the "
+          f"launches {out['nccl_launches']}; against {make_single.__name__}: {summary}, and the "
           f"parameters after AdamW", flush=True)
     out["nccl_backend"], out["nccl_ms"] = group.backend, nccl_ms
     return out
 
 
-def dp_trainer_phase(dev, work_dir: str) -> dict:
-    """``tools/train.py:train_dp`` with 2 ranks on one card (gloo) for one
-    epoch of DP_SCENES bench scenes with seeded GP labels, validation on
-    DP_VAL_SCENES scene by rank 0, then a resume from its checkpoint: every
-    rank's weights, statistics, optimizer state and step equal bit for bit
-    to rank 0's at the end of the epoch. Prints each rank's step times
-    (host clock; the two ranks share one card, so they are no speedup)."""
+def dp_trainer_phase(dev, work_dir: str, cfg=None, label: str = "--dp 2 trainer") -> dict:
+    """``tools/train.py:train_dp`` on ``cfg`` (``full_config()`` unless
+    given; ``spformer_config()`` trains SPFormer) with 2 ranks on one card
+    (gloo) for one epoch of DP_SCENES bench scenes with seeded GP labels,
+    validation on DP_VAL_SCENES scene by rank 0, then a resume from its
+    checkpoint: every rank's weights, statistics, optimizer state and step
+    equal bit for bit to rank 0's at the end of the epoch. Prints each
+    rank's step times (host clock; the two ranks share one card, so they
+    are no speedup)."""
     from gapro_tpu_torch.data.dataset import SyntheticDataset
     from gapro_tpu_torch.tools import train as port_train
 
-    cfg = full_config()
+    cfg = cfg or full_config()
     vc = port_train.voxel_cfg(cfg)
     train_ds = GPLabelled(SyntheticDataset(n_scenes=DP_SCENES, training=True, voxel_cfg=vc,
                                            **FULL_SCENE))
@@ -3613,26 +3638,26 @@ def dp_trainer_phase(dev, work_dir: str) -> dict:
     wall = time.perf_counter() - t0
     rec = res["records"][-1]
     for r in res["ranks"]:
-        print(f"--dp 2 trainer, rank {r['rank']} on {r['device']} ({r['backend']}): "
+        print(f"{label}, rank {r['rank']} on {r['device']} ({r['backend']}): "
               f"{len(r['step_s'])} steps of one scene, "
               + ", ".join(f"{1e3 * s:.1f}" for s in r["step_s"]) + " ms (the first cold)",
               flush=True)
-    print(f"--dp 2 trainer: one epoch of {DP_SCENES} scenes in {wall:.1f} s (spawn to exit); "
+    print(f"{label}: one epoch of {DP_SCENES} scenes in {wall:.1f} s (spawn to exit); "
           f"loss {rec['loss']:.4f}, lr {rec['lr']:.3g}; rank 0's validation on {DP_VAL_SCENES} "
           f"scene: " + " ".join(f"{k} {v:.4f}" for k, v in rec.items() if k.startswith("val_")),
           flush=True)
     steps = {r["steps"] for r in res["ranks"]}
     if steps != {DP_SCENES // 2} or len({r["digest"] for r in res["ranks"]}) != 1:
-        fail(f"--dp 2 trainer: steps {steps}, or the ranks' states differ")
+        fail(f"{label}: steps {steps}, or the ranks' states differ")
     if "val_ap" not in rec or not math.isfinite(rec["loss"]):
-        fail(f"--dp 2 trainer: no validation or a loss not finite: {rec}")
+        fail(f"{label}: no validation or a loss not finite: {rec}")
     again = port_train.train_dp(cfg, work_dir, 2, device=dev, dataset=train_ds,
                                 skip_validate=True, resume=os.path.join(work_dir, "latest"))
     digests = {r["digest"] for r in again["ranks"]}
     if digests != {res["ranks"][0]["digest"]} or again["records"]:
-        fail("--dp 2 trainer: a resumed rank differs from the epoch's end")
+        fail(f"{label}: a resumed rank differs from the epoch's end")
     latest = os.path.basename(os.path.realpath(os.path.join(work_dir, "latest")))
-    print(f"--dp 2 trainer: resumed from {latest} on both ranks, each equal bit for bit to "
+    print(f"{label}: resumed from {latest} on both ranks, each equal bit for bit to "
           f"rank 0 at the epoch's end (weights, BatchNorm statistics, optimizer state, step "
           f"{DP_SCENES // 2})", flush=True)
     return dict(step_s=[r["step_s"] for r in res["ranks"]], wall_s=wall, record=rec)
@@ -4396,6 +4421,217 @@ def library_phase(dev) -> dict:
     return out
 
 
+# ---- 17 (SPFormer), 23-24. SPFormer under data parallelism, the dry run
+# at four ranks and the visualization CLI ---------------------------------
+
+DRYRUN_RANKS = 4
+VIS_SCENES = 2
+VIS_BOX_POINTS = 12 * 24  # tools/visualization.py:_box_edge_points, an instance's box
+
+
+def dp_spformer_phase(dev, pbs, work_dir: str) -> dict:
+    """Phase 17 for SPFormer at full width (``SPFORMER_SCANNETV2``, its
+    U-Net shrunk by SPF_SHRINK): ``dp_step_phase`` on the batch-1 scenes 0
+    and 1 (``pbs``) with ``_spformer_loss_fn``: two gloo ranks against the
+    emulation bit for bit at DP_WEIGHTS, then the world-size-1 NCCL step
+    against ``make_spformer_train_step`` bit for bit; then
+    ``dp_trainer_phase`` on its config (``train_dp`` with 2 ranks for an
+    epoch of DP_SCENES, rank 0's validation, the resume)."""
+    from gapro_tpu_torch.tools import train as port_train
+
+    cfg = spformer_config()
+    out = dp_step_phase(dev, port_train.model_config(cfg), pbs, "SPFormer DP step, full width",
+                        shrink=SPF_SHRINK, crit=port_train.criterion_config(cfg))
+    out["trainer"] = dp_trainer_phase(dev, work_dir, cfg, label="SPFormer --dp 2 trainer")
+    return out
+
+
+def dryrun_phase(dev, root: str) -> dict:
+    """The multi-device dry run (``tools/dryrun_dp.py:dryrun_multichip``)
+    at DRYRUN_RANKS gloo ranks sharing the card: ISBNet and SPFormer at the
+    tiny widths, then the scaled C = 32 stage, the last rank a filler of
+    weight 0. It raises where a loss is not finite, where the ranks'
+    weights, statistics and optimizer states differ bit for bit after a
+    step, or where any rank counts an ``ovf_*``. Then each stage's reduced
+    gradients, statistics and losses (rank 0's, saved under ``root``)
+    against an emulation in this process: the real shards' steps alone,
+    each with its rank's own assignment, reduced by the same formula
+    (``weighted_run``). With three terms the sum depends on the order in
+    which gloo adds them, which the emulation does not follow, so the two
+    are not held bit for bit: ``compare_step`` holds each gradient leaf
+    within NOISE_FACTOR of the kernel path's one-ulp spread (the
+    emulation's runs on inputs nudged both ways), the losses and
+    statistics within PATH_RTOLS. Fails unless every rank launched its
+    model's kernels in each stage. Returns rank 0's launches by stage."""
+    import torch
+
+    from gapro_tpu_torch.tools import dryrun_dp
+
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    res = dryrun_dp.dryrun_multichip(DRYRUN_RANKS, dev, save_dir=root, timeout_s=900.0)
+    wall = time.perf_counter() - t0
+    print(f"dry run: {DRYRUN_RANKS} ranks on {sorted(set(res['devices']))}, backend "
+          f"{res['backend']}; spawn to exit {wall:.1f} s", flush=True)
+    w = [dryrun_dp.shard_weight(r, DRYRUN_RANKS) for r in range(DRYRUN_RANKS)]
+    real = [r for r in range(DRYRUN_RANKS) if w[r] > 0]
+    out = dict(wall_s=wall, launches={}, ms={})
+    for stage in dryrun_dp.stages():
+        reports = res[stage.name]["ranks"]
+        label = f"dry run, {stage.name}"
+        print(f"{label}: loss {res[stage.name]['losses']['loss']:.6f}; "
+              + "; ".join(f"rank {r} (weight {w[r]:g}) {rep['ms']:.1f} ms, launches "
+                          f"{rep['launches']}" for r, rep in enumerate(reports)), flush=True)
+        need = ("subm_conv", "subm_conv_dfeats", "subm_conv_dw")
+        need += () if stage.spformer else ("fps", "dyco")
+        if any(rep["launches"][k] == 0 for rep in reports for k in need):
+            fail(f"{label}: a rank never launched a kernel of the path: "
+                 f"{[rep['launches'] for rep in reports]}")
+        prepare_fn = stage.prepare_fn()
+
+        def one(r, direction=None, stage=stage, reports=reports, prepare_fn=prepare_fn):
+            prepared = prepare_fn(torch.from_numpy(stage.shard(r)).to(dev))
+            if direction is not None:
+                prepared = nudged(prepared, direction)
+            return one_step_grads(stage.build(dev), prepared, stage.crit_cfg,
+                                  assign=torch.from_numpy(reports[r]["assign"]).to(dev))[0]
+
+        ww = [w[r] for r in real]
+        emu = weighted_run([one(r) for r in real], ww)
+        noise = [weighted_run([one(r, d) for r in real], ww) for d in NUDGES]
+        got = torch.load(os.path.join(root, f"{stage.name}.pt"), weights_only=False)
+        dp = (got["losses"], got["grads"], got["stats"])
+        zero_fill(dp[1], [emu[1]] + [n[1] for n in noise])
+        summary = compare_step(dp, emu, PATH_RTOLS,
+                               f"{label}, {len(real)} shards vs the emulation", noise=noise)
+        print(f"{label}: rank 0's reduction against the emulation of the {len(real)} real "
+              f"shards: {summary}; the {DRYRUN_RANKS} ranks' states equal bit for bit",
+              flush=True)
+        out["launches"][stage.name] = reports[0]["launches"]
+        out["ms"][stage.name] = [rep["ms"] for rep in reports]
+    return out
+
+
+def ply_per_point(path: str, xyz, rgb) -> None:
+    """The JAX tool's PLY writer (``tools/visualization.py:write_ply``):
+    one formatted line a point."""
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {len(xyz)}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        f.write("property uchar red\nproperty uchar green\nproperty uchar blue\n")
+        f.write("end_header\n")
+        for p, c in zip(xyz, rgb):
+            f.write(f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f} {c[0]} {c[1]} {c[2]}\n")
+
+
+def visualization_phase(dev, root: str) -> dict:
+    """The visualization CLI (``tools/visualization.py``) on VIS_SCENES
+    full-width bench scenes written in ScanNet's layout, all under
+    ``val/``: first the test CLI's exports of them (``run_test`` with
+    ``out``, the benchmark format, and ``pointwise``, the point-wise heads)
+    from the full-width ISBNet of seed 0, its conf head's bias raised by
+    CONF_SHIFT so that instances are kept, the counts zeroed just before and
+    read just after; then all eight tasks in PLY and in HTML on each scene.
+    Fails unless every file holds the scene's points
+    (``offset_vertices_pred`` VIS_BOX_POINTS more for each ground-truth
+    instance), the HTML page states the same count, and ``instance_pred``'s
+    colours mark exactly the exported masks at or above ``--conf_thresh``
+    (the median of the exported confidences, so that masks lie on both
+    sides of it), the k-th kept mask in the palette's k-th colour, a later
+    mask winning a shared point. Times the PLY writer on a 240,000-point
+    scene against the JAX tool's per-point loop (host clock), whose bytes
+    it must equal."""
+    import torch
+
+    from gapro_tpu_torch.data import scannet_io
+    from gapro_tpu_torch.tools import test as port_test
+    from gapro_tpu_torch.tools import train as port_train
+    from gapro_tpu_torch.tools import visualization
+
+    scans = write_scannet(root, VIS_SCENES)
+    for scan in scans[1:]:
+        shutil.copy(os.path.join(root, "train", scan + "_inst_nostuff.pth"),
+                    os.path.join(root, "val", scan + "_inst_nostuff.pth"))
+    cfg = full_config()
+    cfg.data.update(data_root=root, prefix_val="val")
+    model, _ = port_train.build_model(cfg, dev)
+    with torch.no_grad():
+        model.inst_conf_head.dense2.bias += CONF_SHIFT
+    preds = os.path.join(root, "preds")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    port_test.run_test(cfg, device=dev, model=model, out=preds, pointwise=preds, evaluate=False)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    launches = read_counts()
+    if any(launches[k] == 0 for k in ("subm_conv", "fps", "dyco")):
+        fail(f"visualization: the test CLI's export never launched a kernel: {launches}")
+    out = dict(launches=launches, export_s=export_s, task_s={})
+    vis = os.path.join(root, "vis")
+    for scan in scans:
+        xyz, _, _, inst = scannet_io.load_scene(
+            os.path.join(root, "val", scan + "_inst_nostuff.pth"))
+        n, n_inst = len(xyz), len(np.unique(inst[inst >= 0]))
+        lines = [ln.split() for ln in open(os.path.join(preds, scan + ".txt")).read().splitlines()
+                 if ln]
+        confs = sorted(float(c) for _, _, c in lines)
+        thresh = (confs[len(confs) // 2 - 1] + confs[len(confs) // 2]) / 2 if len(confs) > 1 \
+            else 0.0
+        kept = [rel for rel, _, c in lines if float(c) >= thresh]
+        if not 0 < len(kept) < len(lines):
+            fail(f"visualization, {scan}: {len(kept)} of {len(lines)} exported masks at or above "
+                 f"--conf_thresh {thresh}: want masks on both sides")
+        for task in visualization.TASKS:
+            want_n = n + (VIS_BOX_POINTS * n_inst if task == "offset_vertices_pred" else 0)
+            for fmt in ("ply", "html"):
+                t0 = time.perf_counter()
+                path = visualization.main(["--data_root", root, "--scene", scan, "--task", task,
+                                           "--format", fmt, "--prediction_path", preds,
+                                           "--conf_thresh", repr(thresh), "--out", vis])
+                out["task_s"][f"{scan} {task} {fmt}"] = time.perf_counter() - t0
+                head = open(path, "rb").read(4096).decode("utf-8", "replace")
+                said = (f"element vertex {want_n}\n" in head if fmt == "ply"
+                        else f" {want_n} pts " in head)
+                if not said:
+                    fail(f"visualization, {scan} {task} {fmt}: the file does not hold "
+                         f"{want_n} points")
+        ids = np.full(n, -1, np.int64)
+        for k, rel in enumerate(kept):
+            ids[np.loadtxt(os.path.join(preds, rel)).astype(bool)] = k
+        want = np.full((n, 3), 128, np.uint8)
+        want[ids >= 0] = visualization.PALETTE[ids[ids >= 0] % len(visualization.PALETTE)]
+        got = np.loadtxt(os.path.join(vis, f"{scan}_instance_pred.ply"), skiprows=10,
+                         usecols=(3, 4, 5)).astype(np.uint8)
+        if not np.array_equal(got, want):
+            fail(f"visualization, {scan}: instance_pred's colours differ from the exported "
+                 f"masks' at {int((got != want).any(1).sum())} points")
+        print(f"visualization, {scan}: {n} points, {n_inst} instances; {len(kept)} of "
+              f"{len(lines)} exported masks at or above --conf_thresh {thresh:.4f}, their "
+              f"points exactly the coloured ones; 8 tasks x (ply, html), each with its points "
+              f"(offset_vertices_pred +{VIS_BOX_POINTS * n_inst})", flush=True)
+    xyz, rgb = scannet_io.load_scene(os.path.join(root, "val", scans[0] + "_inst_nostuff.pth"))[:2]
+    colors = np.clip((rgb + 1) * 127.5, 0, 255).astype(np.uint8)
+    times = {}
+    for name, write in (("vectorised", visualization.write_ply), ("per-point loop", ply_per_point),
+                        ("vectorised again", visualization.write_ply)):
+        t0 = time.perf_counter()
+        write(os.path.join(root, f"{name}.ply"), xyz, colors)
+        times[name] = (time.perf_counter() - t0) * 1e3
+    if open(os.path.join(root, "vectorised.ply"), "rb").read() != \
+            open(os.path.join(root, "per-point loop.ply"), "rb").read():
+        fail("visualization: write_ply's bytes differ from the per-point loop's")
+    out["ply_ms"], out["ply_loop_ms"] = min(times["vectorised"], times["vectorised again"]), \
+        times["per-point loop"]
+    print(f"visualization: the test CLI's exports of {VIS_SCENES} scenes {export_s:.1f} s "
+          f"(launches {launches}); the 32 files "
+          f"{sum(out['task_s'].values()):.1f} s; write_ply on {len(xyz)} points (host clock): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in times.items())
+          + ", the bytes equal", flush=True)
+    return out
+
+
 def s3dis_step_alone(dev) -> None:
     """``s3dis_step_phase`` on the written training rooms, alone."""
     from gapro_tpu_torch import cuda_build
@@ -4431,6 +4667,10 @@ SINGLE_PHASES = {
     "prepare": in_build_dir(prepare_phase, "chip_smoke_prepare"),
     "ckpt": lambda dev: in_build_dir(ckpt_phase, "chip_smoke_ckpt")(dev, scene_inputs(0)),
     "library": library_phase,
+    "dp_spformer": lambda dev: in_build_dir(dp_spformer_phase, "chip_smoke_dp_spformer")(
+        dev, [scene_inputs(0)[1], scene_inputs(1)[1]]),
+    "dryrun": in_build_dir(dryrun_phase, "chip_smoke_dryrun"),
+    "visualization": in_build_dir(visualization_phase, "chip_smoke_vis"),
 }
 
 
@@ -4692,6 +4932,10 @@ def main() -> None:
     dp_trainer_phase(dev, dp_dir)
     shutil.rmtree(dp_dir)
     torch.cuda.empty_cache()
+    # SPFormer's data-parallel step and --dp 2 epoch at full width
+    dp_spf = in_build_dir(dp_spformer_phase, "chip_smoke_dp_spformer")(
+        dev, [scenes[0][1], scenes[1][1]])
+    torch.cuda.empty_cache()
 
     # ---- 18. self-training: export -> gen_ps --use_deepfeat -> train -> test
     st_root = os.path.join(str(cuda_build.BUILD_DIR), "chip_smoke_selftrain")
@@ -4714,6 +4958,14 @@ def main() -> None:
 
     # ---- 22. the library functions, card against CPU -----------------------
     library_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 23. the multi-device dry run at four gloo ranks on the card ---------
+    dryrun = in_build_dir(dryrun_phase, "chip_smoke_dryrun")(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 24. the visualization CLI on the test CLI's exports -----------------
+    vis = in_build_dir(visualization_phase, "chip_smoke_vis")(dev)
 
     tl, t4 = train_launches, trainer["launches"]
     s3t = s3["trainer"]["launches"]
@@ -4796,6 +5048,17 @@ def main() -> None:
                     converted_isbnet_launches=ckpt["isbnet"]["launches"][count],
                     converted_spformer_launches=ckpt["spformer"]["launches"][count])
 
+    def dp_dryrun_vis(count):
+        """A kernel's launches on the paths of phases 17 (SPFormer), 23 and
+        24: SPFormer's DP step (rank 0, weights [1, 1]) and its world-size-1
+        NCCL step, each dry-run stage's rank 0, and the test CLI's exports
+        for the visualization."""
+        return dict(dp_spformer_rank0_launches=dp_spf["ranks"][0]["steps"][0]["launches"][count],
+                    dp_spformer_nccl_launches=dp_spf["nccl_launches"][count],
+                    **{f"dryrun_{re.sub('[^a-z0-9]+', '_', k.lower())}_rank0_launches": v[count]
+                       for k, v in dryrun["launches"].items()},
+                    visualization_export_launches=vis["launches"][count])
+
     def learn_shapes(kind):
         """A kernel's numbers at the learning smoke's shapes
         (``learn_kernel_phase``): the conv kernels summed over a forward
@@ -4831,7 +5094,8 @@ def main() -> None:
                   **new_paths("K1", "subm_conv", "k1", "subm_conv_dfeats"),
                   **s3dis_conv("K1", "subm_conv", "subm_conv_dfeats"), **loop_paths("subm_conv"),
                   **{f"{k}_bwd": v for k, v in loop_paths("subm_conv_dfeats").items()},
-                  **learn_shapes("k1"), **slice12("subm_conv"),
+                  **learn_shapes("k1"), **slice12("subm_conv"), **dp_dryrun_vis("subm_conv"),
+                  **{f"{k}_bwd": v for k, v in dp_dryrun_vis("subm_conv_dfeats").items()},
                   **{f"{k}_bwd": v for k, v in learn_shapes("dfeats").items()},
                   **conv_extra(k1, sass.get("subm_conv")))),
             ("subm_conv_dw", "gapro_tpu_torch/csrc/subm_conv_dw.cu",
@@ -4841,6 +5105,7 @@ def main() -> None:
                                       **s3dis_conv("dW", "subm_conv_dw"),
                                       **loop_paths("subm_conv_dw"), **learn_shapes("dw"),
                                       **slice12("subm_conv_dw"),
+                                      **dp_dryrun_vis("subm_conv_dw"),
                                       **conv_extra(dw_acc, sass.get("subm_conv_dw")))),
             ("fps", "gapro_tpu_torch/csrc/fps.cu", "gapro_tpu/ops/fps_pallas.py:42", k4,
              launches["fps"], dict(train_launches=tl["fps"], train_b4_launches=t4["fps"],
@@ -4862,7 +5127,7 @@ def main() -> None:
                                    s3dis_merged_kernel_alone_ms=s3k4["kernel_ms"],
                                    s3dis_merged_plain_ms=s3k4["plain_ms"],
                                    s3dis_merged_bound_ms=s3k4["bound"], **loop_paths("fps"),
-                                   **learn_shapes("k4"), **slice12("fps"),
+                                   **learn_shapes("k4"), **slice12("fps"), **dp_dryrun_vis("fps"),
                                    sass=sass.get("fps"))),
             ("dyco", "gapro_tpu_torch/csrc/dyco.cu", "gapro_tpu/models/dyco.py:100", k5_req,
              launches["dyco"],
@@ -4880,7 +5145,7 @@ def main() -> None:
                   s3dis_request_device_ms=sum(r["device_ms"] for r in s3k5),
                   s3dis_request_plain_ms=sum(r["plain_ms"] for r in s3k5),
                   s3dis_request_bound_ms=sum(r["bound_ms"] for r in s3k5), **loop_paths("dyco"),
-                  **learn_shapes("k5"), **slice12("dyco"),
+                  **learn_shapes("k5"), **slice12("dyco"), **dp_dryrun_vis("dyco"),
                   sass=sass.get("dyco")))):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, launches=n,

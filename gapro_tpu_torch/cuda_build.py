@@ -99,3 +99,15 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launcher."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's count of its launches in this process."""
+    from .models import dyco
+    from .ops import fps
+    from .sparse import conv
+
+    return {"subm_conv": conv.subm_conv_cuda.launches,
+            "subm_conv_dfeats": conv.subm_conv_dfeats_cuda.launches,
+            "subm_conv_dw": conv.subm_conv_dw_cuda.launches, "fps": fps.fps_cuda.launches,
+            "dyco": dyco.dyco_cuda.launches}

@@ -196,13 +196,17 @@ def save_pointwise(out_dir: str, scan_id: str, outputs, point2voxel, n_points: i
 def export_benchmark(out_dir: str, scan_id: str, instances, n_points: int) -> None:
     """The ScanNet benchmark's submission format: ``<scan>.txt`` with one
     line ``pred_mask/<scan>_<i>.txt label conf`` per instance, and each
-    mask as a column of 0/1."""
+    mask as a column of 0/1, the bytes ``np.savetxt(fmt="%d")`` writes,
+    made in one pass over the mask."""
     os.makedirs(osp.join(out_dir, "pred_mask"), exist_ok=True)
     lines = []
     for i, inst in enumerate(instances):
         rel = f"pred_mask/{scan_id}_{i:03d}.txt"
-        np.savetxt(osp.join(out_dir, rel), rle_decode(inst["pred_mask"]).astype(np.int8),
-                   fmt="%d")
+        mask = rle_decode(inst["pred_mask"]).astype(bool)
+        column = np.full((len(mask), 2), ord("\n"), np.uint8)
+        column[:, 0] = ord("0") + mask
+        with open(osp.join(out_dir, rel), "wb") as f:
+            f.write(column.tobytes())
         lines.append(f"{rel} {inst['label_id']} {inst['conf']:.4f}")
     with open(osp.join(out_dir, scan_id + ".txt"), "w") as f:
         f.write("\n".join(lines))

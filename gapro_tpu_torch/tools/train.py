@@ -86,20 +86,29 @@ def model_config(cfg):
     raise ValueError(f"model type {cfg.model.type!r}")
 
 
-def build_model(cfg, device=None, seed: int = 0):
-    """The config's ISBNet or SPFormer with weights drawn from ``seed`` on
-    ``device``, and its criterion's config."""
-    mcfg = model_config(cfg)
+def criterion_config(cfg):
+    """The criterion's config of the config's model: ISBNet's
+    ``CriterionConfig`` or SPFormer's ``SPFormerCriterionConfig``."""
     ck = dict(cfg.get("criterion", {}))
-    if isinstance(mcfg, ISBNetConfig):
-        return ISBNet(mcfg, seed=seed, device=device), CriterionConfig(**ck)
+    if cfg.model.type != "spformer":
+        return CriterionConfig(**ck)
     from ..losses.spformer_criterion import SPFormerCriterionConfig
-    from ..models.spformer import SPFormer
 
     for key in ("loss_weight", "cost_weight"):
         if key in ck:
             ck[key] = tuple(ck[key])
-    return SPFormer(mcfg, seed=seed, device=device), SPFormerCriterionConfig(**ck)
+    return SPFormerCriterionConfig(**ck)
+
+
+def build_model(cfg, device=None, seed: int = 0):
+    """The config's ISBNet or SPFormer with weights drawn from ``seed`` on
+    ``device``, and its criterion's config."""
+    mcfg = model_config(cfg)
+    if isinstance(mcfg, ISBNetConfig):
+        return ISBNet(mcfg, seed=seed, device=device), criterion_config(cfg)
+    from ..models.spformer import SPFormer
+
+    return SPFormer(mcfg, seed=seed, device=device), criterion_config(cfg)
 
 
 def voxel_cfg(cfg) -> VoxelCfg:

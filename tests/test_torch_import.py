@@ -40,7 +40,8 @@ def test_port_imports_no_jax():
             "gapro_tpu_torch.ops.components", "gapro_tpu_torch.ops.interpolate",
             "gapro_tpu_torch.ops.maskiou", "gapro_tpu_torch.tools.prepare_scannet",
             "gapro_tpu_torch.tools.prepare_s3dis",
-            "gapro_tpu_torch.tools.convert_torch_ckpt"} <= set(mods)
+            "gapro_tpu_torch.tools.convert_torch_ckpt", "gapro_tpu_torch.tools.dryrun_dp",
+            "gapro_tpu_torch.tools.visualization"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

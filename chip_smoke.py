@@ -134,7 +134,15 @@ Builds the hand-written CUDA kernels from ``gapro_tpu_torch/csrc/`` and:
     for bit, rank 0's reduction against an emulation within the noise gate;
 24. the visualization CLI on the test CLI's exports of 2 full-width
     scenes: the eight tasks in PLY and HTML, point counts, the
-    ``instance_pred`` colours against the masks, ``write_ply`` timed.
+    ``instance_pred`` colours against the masks, ``write_ply`` timed;
+25. the bf16 conv mode (``GAPRO_CONV_DTYPE=bf16``): K1-bf16 at every
+    forward conv shape of the full-width ISBNet, in its level's function,
+    against its plain version and fp64 of the bf16 operands, timed beside
+    the fp32 K1; the request on the 3 bench scenes and the batch-1 step,
+    each held against its fp64 run with the plain bf16 path as the
+    yardstick, K1-bf16's drift on the step's activations; the trainer at
+    batch 4 for an epoch of 8 scenes; SPFormer's batch-4 step; the
+    learning smoke's ISBNet; each beside the fp32 path's time.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -159,10 +167,11 @@ from collections import Counter
 import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 CUDA-core FLOP/s and
-# dense TF32 tensor-core FLOP/s.
+# dense TF32 and bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 # The conv kernels take each fp32 product in the split form 3xTF32 (three
 # TF32 products: a_lo.b_hi + a_hi.b_lo + a_hi.b_hi): the cost of that form,
 # 3 times the function's operations at the TF32 rate, is shown beside their
@@ -417,8 +426,8 @@ def sass_counts() -> dict:
     if tool is None:
         return {}
     out = {}
-    for name, ops in (("subm_conv", ("HGMMA", "HMMA")), ("subm_conv_dw", ("HGMMA", "HMMA")),
-                      ("dyco", ("HGMMA", "HMMA")),
+    for name, ops in (("subm_conv", ("HGMMA", "HMMA")), ("subm_conv_bf16", ("HGMMA", "HMMA")),
+                      ("subm_conv_dw", ("HGMMA", "HMMA")), ("dyco", ("HGMMA", "HMMA")),
                       ("fps", ("CGABAR", "STAS", "SYNCS", "MEMBAR.ALL.GPU"))):
         sass = subprocess.run([tool, "-sass", str(cuda_build.BUILD_DIR / f"lib{name}.so")],
                               capture_output=True, text=True, timeout=120, check=True).stdout
@@ -430,12 +439,18 @@ def sass_counts() -> dict:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model's kernel wrappers to their plain versions."""
+    import torch
+
     from gapro_tpu_torch.models import dyco
     from gapro_tpu_torch.ops import fps as fps_ops
     from gapro_tpu_torch.sparse import conv
 
-    names = ((conv, "subm_conv_cuda", lambda f, n, w, v, tables: conv.subm_conv(f, n, w, v)),
-             (conv, "subm_conv_dfeats_cuda", lambda f, n, w, v, tables: conv.subm_conv(f, n, w, v)),
+    fp32 = torch.float32
+    names = ((conv, "subm_conv_cuda", lambda f, n, w, v, tables: conv.subm_conv(f, n, w, v, fp32)),
+             (conv, "subm_conv_bf16_cuda",
+              lambda f, n, w, v, tables, window: conv.subm_conv_bf16(f, n, w, v, window)),
+             (conv, "subm_conv_dfeats_cuda",
+              lambda f, n, w, v, tables: conv.subm_conv(f, n, w, v, fp32)),
              (conv, "subm_conv_dw_cuda", lambda f, n, d, tables: conv.subm_conv_dw(f, n, d)),
              (fps_ops, "fps_cuda", fps_ops.fps_masked),
              (dyco, "dyco_cuda", dyco.dyco_mlp_plain))
@@ -454,8 +469,8 @@ def zero_counts() -> None:
     from gapro_tpu_torch.ops import fps as fps_ops
     from gapro_tpu_torch.sparse import conv
 
-    for f in (conv.subm_conv_cuda, conv.subm_conv_dfeats_cuda, conv.subm_conv_dw_cuda,
-              fps_ops.fps_cuda, dyco.dyco_cuda):
+    for f in (conv.subm_conv_cuda, conv.subm_conv_bf16_cuda, conv.subm_conv_dfeats_cuda,
+              conv.subm_conv_dw_cuda, fps_ops.fps_cuda, dyco.dyco_cuda):
         f.launches = 0
 
 
@@ -653,11 +668,12 @@ def layer_times(fn) -> dict:
     return dict(acc)
 
 
-# The conv kernels and their helpers in a trace: K1 with its B tiling and
-# split sum, dW with its split sum.
+# The conv kernels and their helpers in a trace: K1 and K1-bf16 with their
+# B tiling and split sum, dW with its split sum.
 CONV_KERNELS = {"subm_conv_kernel": "K1", "tile_b_kernel": "K1",
                 "subm_conv_sum_splits_kernel": "K1", "subm_conv_dw_kernel": "dW",
-                "subm_conv_dw_sum_splits_kernel": "dW"}
+                "subm_conv_dw_sum_splits_kernel": "dW", "subm_conv_bf16_kernel": "K1-bf16",
+                "tile_b_bf16_kernel": "K1-bf16", "subm_conv_bf16_sum_splits_kernel": "K1-bf16"}
 
 
 def profile_request(fn, what: str, top: int = 12, attempts: int = 3) -> None:
@@ -689,9 +705,11 @@ def profile_request(fn, what: str, top: int = 12, attempts: int = 3) -> None:
             if name:
                 key = CONV_KERNELS[name]
                 conv_ms[key] += e.time_range.elapsed_us() / 1e3
-                conv_n[key] += name in ("subm_conv_kernel", "subm_conv_dw_kernel")
+                conv_n[key] += name in ("subm_conv_kernel", "subm_conv_dw_kernel",
+                                        "subm_conv_bf16_kernel")
         want = {"K1": sum(after[k] - before[k] for k in ("subm_conv", "subm_conv_dfeats")),
-                "dW": after["subm_conv_dw"] - before["subm_conv_dw"]}
+                "dW": after["subm_conv_dw"] - before["subm_conv_dw"],
+                "K1-bf16": after["subm_conv_bf16"] - before["subm_conv_bf16"]}
         if all(conv_n[k] == n for k, n in want.items()):
             break
         print(f"profile, {what}: the trace holds {dict(conv_n)} conv launches of {want}; "
@@ -722,8 +740,10 @@ def profile_request(fn, what: str, top: int = 12, attempts: int = 3) -> None:
               flush=True)
     print(f"profile, {what}: K1 (forward and dfeats) {conv_ms['K1']:.3f} ms in {conv_n['K1']} "
           f"launches of subm_conv_kernel, dW {conv_ms['dW']:.3f} ms in {conv_n['dW']} launches of "
-          f"subm_conv_dw_kernel (each with its helper kernels); the wrappers counted {want}",
-          flush=True)
+          f"subm_conv_dw_kernel"
+          + (f", K1-bf16 {conv_ms['K1-bf16']:.3f} ms in {conv_n['K1-bf16']} launches of "
+             f"subm_conv_bf16_kernel" if want["K1-bf16"] else "")
+          + f" (each with its helper kernels); the wrappers counted {want}", flush=True)
 
 
 def conv_acc() -> dict:
@@ -1405,47 +1425,59 @@ def fp64_step(make_model, prepared, crit, assign) -> tuple:
     return ({k: float(v.detach()) for k, v in losses.items()}, *grads_and_stats(model))
 
 
-def fp64_hold(kern: tuple, plain: tuple, ref: tuple, what: str) -> dict:
+def fp64_hold(kern: tuple, plain: tuple, ref: tuple, what: str, spread=()) -> dict:
     """Hold each leaf of ``kern`` (losses, gradients, statistics) against
     ``ref``, an fp64 run of the same step, measured by ``plain``'s error
-    against ``ref``, as FP64_FACTOR and NOISE_FACTOR say. Prints how many
+    against ``ref``, as FP64_FACTOR and NOISE_FACTOR say. With ``spread``,
+    more runs of the plain path, the kernel path's error is measured by the
+    largest of the plain runs', and in the mirror that sets the bounds each
+    plain run's by the largest of the kernel path's and the other runs',
+    the largest ratio of them a leaf's; NOISE_FACTOR leaves are allowed
+    over FP64_FACTOR at least. Prints how many
     leaves each path has over the factor and the largest ratios; fails if
     the kernel path is past its bounds or not finite. Returns the counts and
     the largest ratios."""
     import torch
 
     (lk, gk, sk), (lp, gp, sp), (lr, gr, sr) = kern, plain, ref
-    top = max(float(t.abs().max()) for t in gr.values() if t is not None)
+    plains = (plain, *spread)
+    top = max((float(t.abs().max()) for t in gr.values() if t is not None), default=0.0)
 
     def rms(a, b):
         d = (torch.as_tensor(a, dtype=torch.float64).cpu()
              - torch.as_tensor(b, dtype=torch.float64).cpu())
         return float(d.pow(2).mean().sqrt()) if d.numel() else 0.0
 
-    rows = []  # (name, kernel error, plain error, floor)
+    rows = []  # (name, kernel error, plain errors, floor)
     for k, r in lr.items():
-        rows.append((f"loss {k}", rms(lk[k], r), rms(lp[k], r),
+        rows.append((f"loss {k}", rms(lk[k], r), [rms(p[0][k], r) for p in plains],
                      FP64_FLOOR * max(1.0, abs(float(r)))))
     for k, r in gr.items():
         if r is None:
             if gk[k] is not None or gp[k] is not None:
                 fail(f"{what}: gradient {k} is missing from the fp64 run only")
             continue
-        rows.append((f"grad {k}", rms(gk[k], r), rms(gp[k], r), FP64_FLOOR * top))
+        rows.append((f"grad {k}", rms(gk[k], r), [rms(p[1][k], r) for p in plains],
+                     FP64_FLOOR * top))
     for k, r in sr.items():
         if r.is_floating_point():
-            rows.append((f"stat {k}", rms(sk[k], r), rms(sp[k], r),
+            rows.append((f"stat {k}", rms(sk[k], r), [rms(p[2][k], r) for p in plains],
                          FP64_FLOOR * max(1.0, float(r.abs().max()))))
     if not all(math.isfinite(ek) for _, ek, _, _ in rows):
         fail(f"{what}: a leaf of the kernel path is not finite")
-    kr = sorted(((max(ek, fl) / max(ep, fl), n) for n, ek, ep, fl in rows), reverse=True)
-    pr = sorted(((max(ep, fl) / max(ek, fl), n) for n, ek, ep, fl in rows), reverse=True)
+    kr = sorted(((max(ek, fl) / max(*ep, fl), n) for n, ek, ep, fl in rows), reverse=True)
+    pr = sorted(((max(max(e, fl) / max(ek, *ep[:j], *ep[j + 1:], fl)
+                      for j, e in enumerate(ep)), n) for n, ek, ep, fl in rows), reverse=True)
     k_over = sum(r > FP64_FACTOR for r, _ in kr)
     p_over = sum(r > FP64_FACTOR for r, _ in pr)
     bound = max(FP64_FACTOR, NOISE_FACTOR * pr[0][0])
-    allowed = NOISE_FACTOR * p_over
+    # with a spread a leaf counts in the mirror only where one plain run lies
+    # FP64_FACTOR times as far from fp64 as the kernel path and every other
+    # run: one or two leaves of hundreds, so that a mirror of none is a draw
+    allowed = NOISE_FACTOR * max(p_over, 1 if spread else 0)
     print(f"{what}, against fp64: {len(rows)} leaves (rms error, floor {FP64_FLOOR:.3g} of "
-          f"scale); over {FP64_FACTOR} times the other path's error: the kernel path "
+          f"scale" + (f"; the plain path's the largest of {len(plains)} runs" if spread else "")
+          + f"); over {FP64_FACTOR} times the other path's error: the kernel path "
           f"{k_over}, the plain path {p_over}; largest ratio: the kernel path's {kr[0][0]:.3g} "
           f"({kr[0][1]}), the plain path's {pr[0][0]:.3g} ({pr[0][1]}); the kernel path's "
           f"bound {bound:.3g}, {allowed:.0f} leaves allowed over", flush=True)
@@ -4632,6 +4664,425 @@ def visualization_phase(dev, root: str) -> dict:
     return out
 
 
+# ---- the bf16 conv mode (GAPRO_CONV_DTYPE=bf16) -----------------------------
+
+# One bf16 rounding step of a value, relative to it (bf16 keeps 8 bits).
+BF16_STEP = 2.0 ** -8
+# K1-bf16 against its plain version: within K1_RTOL of the output's scale
+# (the same exact products summed in another order). On a window level each
+# tap's sum is rounded to bf16 (sparse/conv.py:subm_conv_bf16), a step
+# function: a tap whose sum lies within fp32 rounding of a bf16 rounding
+# boundary may round either way in two fp32 sums, and its entry moves by one
+# bf16 step of the tap, at most BF16_STEP of the scale. Such entries are
+# found from fp64 (``unstable_taps``: a tap within TAP_MARGIN of the sum of
+# its products' magnitudes of a boundary) and held apart; every other entry
+# is held as K1 is, within K1_RTOL of the plain version and against fp64.
+TAP_MARGIN = 2.0 ** -18
+BF16_TRAIN_SCENES = 8  # the bf16 trainer's epoch: two steps of batch 4, one cold
+
+
+@contextlib.contextmanager
+def conv_dtype(value):
+    """``GAPRO_CONV_DTYPE`` set to ``value`` (unset for None) inside, as
+    before after."""
+    saved = os.environ.get("GAPRO_CONV_DTYPE")
+    if value is None:
+        os.environ.pop("GAPRO_CONV_DTYPE", None)
+    else:
+        os.environ["GAPRO_CONV_DTYPE"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("GAPRO_CONV_DTYPE", None)
+        else:
+            os.environ["GAPRO_CONV_DTYPE"] = saved
+
+
+def bf16_counts(cfg, caps, levels) -> dict:
+    """The conv kernels' launches a bf16 training step of a U-Net: K1-bf16 on
+    every subm conv; dfeats (the fp32 K1) and dW only on the levels with
+    window tables on the TPU (``LevelPlan.window``), dfeats not on the
+    stem's; the other levels' backward is plain; the fp32 K1 forward never."""
+    shapes = k1_shape_counts(cfg, caps)
+    window = sum(n for (v, _, _), n in shapes.items() if levels[caps.index(v)].window)
+    return {"subm_conv_bf16": sum(shapes.values()), "subm_conv": 0,
+            "subm_conv_dfeats": window - int(levels[0].window), "subm_conv_dw": window}
+
+
+def rms_ratio(rms: float, plain_rms: float) -> float:
+    """A kernel's rms error against fp64 over its plain version's; 1 where
+    both are exact (a window level's held entries sum bf16 taps, often
+    exactly)."""
+    return rms / plain_rms if plain_rms else (math.inf if rms else 1.0)
+
+
+def unstable_taps(feats, nbr, w, valid):
+    """[V, Cout] bool: the valid entries with a tap whose sum over the
+    channels (fp64, of the bf16 operands) lies within TAP_MARGIN times the
+    sum of its products' magnitudes of a bf16 rounding boundary, where an
+    fp32 sum of the same products may round the other way."""
+    import torch
+
+    from gapro_tpu_torch.sparse import conv
+
+    fb, wb = feats.to(torch.bfloat16).double(), w.to(torch.bfloat16).double()
+    out = torch.zeros((feats.shape[0], w.shape[2]), dtype=torch.bool, device=feats.device)
+    for k in range(nbr.shape[1]):  # one offset at a time: a [V, Cin] gather
+        rows = conv.gather_rows(fb, nbr[:, k:k + 1])[:, 0]
+        t, m = rows @ wb[k], TAP_MARGIN * (rows.abs() @ wb[k].abs())
+        out |= (t - m).to(torch.bfloat16) != (t + m).to(torch.bfloat16)
+    return out & valid[:, None]
+
+
+def k1_bf16_phase(cfg, caps, levels, dev) -> dict:
+    """K1-bf16 at the forward conv shapes of a full-width U-Net, each in the
+    function of its level (``LevelPlan.window``: each tap rounded to bf16):
+    against its plain version (TF32 off); against the same function in fp64
+    of the bf16-rounded operands (rms at most NOISE_FACTOR times the plain
+    version's, the mean along the sign within K1_DRIFT_ULP), on a window
+    level over the entries no tap of which lies at a rounding boundary
+    (``unstable_taps``), the others within BF16_STEP of the scale; timed
+    beside the plain version and the fp32 K1 at the same shape, with its
+    bound (bf16 bytes, operations at the bf16 rate). Returns the per-scene
+    sums."""
+    import torch
+
+    from gapro_tpu_torch.sparse import conv
+
+    g = torch.Generator().manual_seed(3)
+    acc = dict(conv_acc(), fp32_ms=0.0, over=0.0)
+    print("K1-bf16 subm_conv_bf16_cuda vs plain (per launch; V, Cin, Cout, launches/scene; "
+          "round: the level's taps rounded to bf16, as its TPU window kernel does):", flush=True)
+    for (v, cin, cout), count in sorted(k1_shape_counts(cfg, caps).items()):
+        lp = levels[caps.index(v)]
+        valid, nbr, window = lp.grid.valid, lp.subm_nbr, lp.window
+        feats = torch.randn(v, cin, generator=g).to(dev) * valid[:, None]
+        b = math.sqrt(3.0 / (27 * cin))
+        w = ((torch.rand(27, cin, cout, generator=g) * 2 - 1) * b).to(dev)
+        run = lambda: conv.subm_conv_bf16_cuda(feats, nbr, w, valid, tables=lp.conv,
+                                               window=window)
+        got = run()
+        want = conv.subm_conv_bf16(feats, nbr, w, valid, window)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(want.abs().max()))
+        diff = (got - want).abs()
+        held = (valid[:, None] & ~unstable_taps(feats, nbr, w, valid) if window
+                else valid[:, None].expand(-1, cout))
+        err, held_err = float(diff.max()), float(diff[held].max())
+        flips = int((diff > K1_RTOL * scale).sum())
+        if held_err > K1_RTOL * scale or err > BF16_STEP * scale:
+            fail(f"K1-bf16 at V={v} Cin={cin} Cout={cout} (round {int(window)}): max |err| "
+                 f"{held_err:.3g} over the held entries, {err:.3g} over all, of scale {scale:.3g}")
+        if not bool((got[~valid] == 0).all()):
+            fail(f"K1-bf16 at V={v}: invalid rows are not exactly 0")
+        ref = conv.subm_conv_bf16(feats.double(), nbr, w.double(), valid, window)
+        rms, plain_rms, drift, along = fp64_drift(got, want, ref, held, "K1-bf16")
+        if rms > NOISE_FACTOR * plain_rms:
+            fail(f"K1-bf16 at V={v} Cin={cin} Cout={cout} is further from fp64 than its plain "
+                 f"version is: {drift}")
+        if abs(along) > K1_DRIFT_ULP:
+            fail(f"K1-bf16 at V={v} Cin={cin} Cout={cout} drifts along the output's sign by more "
+                 f"than {K1_DRIFT_ULP} ulp against fp64: {drift}")
+        ms = cuda_ms(run, 10)
+        pms = cuda_ms(lambda: conv.subm_conv_bf16(feats, nbr, w, valid, window), 5)
+        fms = cuda_ms(lambda: conv.subm_conv_cuda(feats, nbr, w, valid, tables=lp.conv), 10)
+        nnz = int((nbr >= 0).sum())
+        nbytes = v * 27 * 4 + v * cin * 2 + 27 * cin * cout * 2 + v + v * cout * 4
+        flops = 2.0 * nnz * cin * cout
+        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        for key, val in (("ms", ms), ("plain_ms", pms), ("fp32_ms", fms), ("bound", bms),
+                         ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3),
+                         ("ops_ms", flops / BF16_FLOPS * 1e3), ("flops", flops)):
+            acc[key] += count * val
+        acc["err"] = max(acc["err"], err)
+        acc["over"] = max(acc["over"], flips / int(valid.sum()) / cout)
+        acc["fp64"] = max(acc["fp64"], rms_ratio(rms, plain_rms))
+        acc["drift"] = max(acc["drift"], abs(along))
+        print(f"  V={v:6d} Cin={cin:3d} Cout={cout:3d} x{count} round {int(window)}: kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), fp32 K1 {fms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {bms:.4f} ms ({by}, bf16), max|err| {err:.3g} ({flips} entries "
+              f"past {K1_RTOL} of the scale, a tap's rounding flipped; "
+              f"{int(held.sum())} of {int(valid.sum()) * cout} held); against fp64: {drift}",
+              flush=True)
+    n = sum(k1_shape_counts(cfg, caps).values())
+    print(f"K1-bf16 per scene ({n} launches): kernel {acc['ms']:.3f} ms "
+          f"({acc['flops'] / acc['ms'] / 1e9:.2f} TFLOP/s), fp32 K1 {acc['fp32_ms']:.3f} ms, plain {acc['plain_ms']:.3f} ms, bound "
+          f"{acc['bound']:.3f} ms ({acc['bound'] / acc['ms']:.1%} of it reached); against fp64 "
+          f"the mean along the sign at most {acc['drift']:.3g} ulp (gate {K1_DRIFT_ULP}), rms "
+          f"at most {acc['fp64']:.3g} times the plain version's", flush=True)
+    return acc
+
+
+def k1_bf16_step_drift(model, prepared, crit, what: str) -> float:
+    """K1-bf16 against fp64 of the bf16 operands at every launch of one bf16
+    training step's forward (the step's own activations and weights), each
+    in its level's function (on a window level over the entries
+    ``unstable_taps`` leaves), beside the plain version; fails past
+    K1_DRIFT_ULP. Returns the largest mean along the sign."""
+    import torch
+
+    from gapro_tpu_torch.sparse import conv
+
+    rows, k1 = [], conv.subm_conv_bf16_cuda
+
+    def held(a, nbr, w, valid, tables, window):
+        got = k1(a, nbr, w, valid, tables=tables, window=window)
+        with torch.no_grad():
+            ref = conv.subm_conv_bf16(a.double(), nbr, w.double(), valid, window)
+            if bool(ref.abs().max() > 0):
+                pick = valid[:, None] & ~unstable_taps(a, nbr, w, valid) if window else valid
+                rms, plain_rms, drift, along = fp64_drift(
+                    got, conv.subm_conv_bf16(a, nbr, w, valid, window), ref, pick, "K1-bf16")
+                rows.append((tuple(got.shape), rms_ratio(rms, plain_rms), along, drift))
+        return got
+    held.launches = 0  # the kernel counts its launch here: a check's launch, not the path's
+
+    conv.subm_conv_bf16_cuda = held
+    try:
+        with conv_dtype("bf16"):
+            one_step_grads(model, prepared, crit)
+    finally:
+        conv.subm_conv_bf16_cuda = k1
+    torch.cuda.synchronize()
+    worst = max(rows, key=lambda r: abs(r[2]))
+    print(f"{what}, K1-bf16 on the step's own inputs against fp64 of the bf16 operands "
+          f"({len(rows)} launches): the mean along the sign from {min(r[2] for r in rows):+.3g} "
+          f"to {max(r[2] for r in rows):+.3g} ulp (gate {K1_DRIFT_ULP}), rms "
+          f"{min(r[1] for r in rows):.3g} to {max(r[1] for r in rows):.3g} times the plain "
+          f"version's; the furthest at {worst[0]}: {worst[3]}", flush=True)
+    for shape, _, along, drift in rows:
+        if abs(along) > K1_DRIFT_ULP:
+            fail(f"{what}: K1-bf16 at {shape} drifts along the output's sign by more than "
+                 f"{K1_DRIFT_ULP} ulp against fp64: {drift}")
+    return abs(worst[2])
+
+
+def fp64_request(model, prepared) -> dict:
+    """``forward_inference`` through the plain versions with a copy of the
+    model and the inputs in float64, in fp32 mode (no bf16 rounding)."""
+    import copy
+
+    with conv_dtype(None), plain_kernels():
+        return copy.deepcopy(model).double().forward_inference(to_fp64(prepared).batch, ROUNDS)
+
+
+def hold_request(kern: dict, plain: dict, ref: dict, what: str) -> dict:
+    """A request's float outputs, ``fp64_hold``'s way: each output's rms error
+    against ``ref`` (the fp64 run) for the kernel path over the plain
+    path's. Where a discrete output (a sampled index, a validity mask)
+    differs from the fp64 run's, the outputs computed after the sampling
+    differ by the choice, not by rounding: only the per-voxel outputs are
+    held then."""
+    import torch
+
+    discrete = [k for k, v in ref.items() if isinstance(v, torch.Tensor)
+                and not v.is_floating_point() and not torch.equal(kern[k].cpu(), v.cpu())]
+    keys = [k for k, v in ref.items() if isinstance(v, torch.Tensor) and v.is_floating_point()
+            and (not discrete or v.shape[0] == N_CAP)]
+    pick = lambda out: {k: torch.where(ref[k] == MASK_FILL, 0.0, out[k].double()) for k in keys}
+    print(f"{what}: discrete outputs " + (f"differ from the fp64 run's in {discrete}; held: "
+                                           f"the per-voxel outputs {keys}" if discrete else
+                                           f"equal to the fp64 run's; held: {keys}"), flush=True)
+    return fp64_hold(({}, {}, pick(kern)), ({}, {}, pick(plain)), ({}, {}, pick(ref)), what)
+
+
+def timed_steps(make_train_step, model, prepared, crit, lr: float, n: int = 2) -> tuple:
+    """One cold and ``n`` timed steps of ``make_train_step`` on ``prepared``
+    (host clock, synchronised): the median ms, the last step's losses and
+    those not finite."""
+    import torch
+
+    from gapro_tpu_torch.train.state import create_train_state
+
+    st = create_train_state(model, lr=lr)
+    fn = make_train_step(model, crit)
+    ms = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, losses = fn(st, prepared, lr)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    losses = {k: float(v) for k, v in losses.items()}
+    bad = [k for k, v in losses.items() if not math.isfinite(v)]
+    return statistics.median(ms[1:]), losses, bad
+
+
+def bf16_phase(dev, fp32, root: str) -> dict:
+    """The bf16 conv mode on the card (phase 25): K1-bf16 at the full-width
+    ISBNet's shapes (``k1_bf16_phase``); the request on the 3 bench scenes
+    in bf16 (a cold one, then each timed, the counts zeroed just before and
+    read just after), scene 0 held against its fp64 run with the plain bf16
+    path as the yardstick (``hold_request``); the batch-1 step likewise
+    (``fp64_hold``; the plain path's error the larger of its runs on the
+    inputs and on them nudged one ulp away from zero: a bf16 step's losses
+    move between the two by about as much as between the paths), K1-bf16's
+    drift on its activations, both modes' step timed, one bf16 step
+    profiled; the trainer at batch 4 for an epoch of BF16_TRAIN_SCENES
+    scenes; SPFormer's batch-4 step in both modes; the learning smoke's
+    ISBNet, 300 steps. ``fp32`` holds the fp32 paths' numbers of the same
+    run (request, trainer and smoke), printed beside; None where the phase
+    runs alone."""
+    import torch
+
+    from gapro_tpu_torch.data.dataset import SyntheticDataset, build_dataloader
+    from gapro_tpu_torch.losses.criterion import CriterionConfig
+    from gapro_tpu_torch.models import isbnet, prepare
+    from gapro_tpu_torch.models.spformer import SPFormerConfig
+    from gapro_tpu_torch.sparse.plan import level_capacities
+    from gapro_tpu_torch.tools import smoke_learn
+    from gapro_tpu_torch.tools import train as port_train
+    from gapro_tpu_torch.train import step as train_step
+    from gapro_tpu_torch.train.state import create_train_state
+
+    fp32 = fp32 or {}
+    side = lambda key, fmt=".1f", unit=" ms": (f"{fp32[key]:{fmt}}{unit}" if key in fp32
+                                               else "not measured in this run")
+    t_phase = time.perf_counter()
+    cfg = isbnet.ISBNetConfig(filter_bg_thresh=0.0)
+    caps = level_capacities(N_CAP, cfg.num_blocks, FULL_SHRINK)
+    scenes = [scene_inputs(seed) for seed in range(3)]
+    prep0 = prepare.prepare_voxel_batch(prepare.upload_point_batch(scenes[0][1], dev), N_CAP, 1,
+                                        cfg.num_blocks, cfg.spp_cap, FULL_SHRINK)
+    levels = prep0.batch.plan.levels
+    print(f"bf16: window tables on the TPU at levels "
+          f"{[i for i, lp in enumerate(levels) if lp.window]} of capacities {caps}", flush=True)
+    out = dict(k1=k1_bf16_phase(cfg, caps, levels, dev))
+    need = bf16_counts(cfg, caps, levels)
+
+    # the request: 3 scenes after a cold one, the counts zeroed around them
+    model = isbnet.ISBNet(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        model.inst_conf_head.dense2.bias += CONF_SHIFT
+    with conv_dtype("bf16"):
+        serve(model, *scenes[0], dev)
+        zero_counts()
+        times, results = [], []
+        for s, pb in scenes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results.append(serve(model, s, pb, dev))
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["request_launches"] = read_counts()
+        with plain_kernels():
+            plain_out = serve(model, *scenes[0], dev)[1]
+    launches = out["request_launches"]
+    out["request_ms"] = statistics.median(times)
+    print(f"bf16 request, 3 scenes: median {out['request_ms']:.1f} ms (all: "
+          + ", ".join(f"{t:.1f}" for t in times) + f"; fp32 {side('request_ms')}), "
+          f"{[len(r[2]) for r in results]} instances; launches {launches}", flush=True)
+    if launches["subm_conv_bf16"] != need["subm_conv_bf16"] * 3 or launches["subm_conv"]:
+        fail(f"the bf16 request did not run its forward convs through K1-bf16: {launches}")
+    for _, o, inst, _ in results:
+        if not inst or not all(bool(torch.isfinite(v).all()) for v in o.values()
+                               if isinstance(v, torch.Tensor) and v.is_floating_point()):
+            fail("a bf16 request gave no instance or an output not finite")
+    out["request_hold"] = hold_request(results[0][1], plain_out, fp64_request(model, results[0][0]),
+                                       "bf16 request, scene 0")
+    del results, plain_out
+
+    # the batch-1 step: held against its fp64 run, K1-bf16's drift, timed
+    crit = CriterionConfig(inst_cap=INST_CAP)
+    make = lambda: isbnet.ISBNet(cfg, seed=0, device=dev)
+    with conv_dtype("bf16"):
+        zero_counts()
+        kern, assign, _ = one_step_grads(make(), prep0, crit)
+        out["step_launches"] = read_counts()
+        with plain_kernels():
+            plain = one_step_grads(make(), prep0, crit, assign=assign)[0]
+            nudged_plain = one_step_grads(make(), nudged(prep0, NUDGES[0]), crit,
+                                          assign=assign)[0]
+    if any(out["step_launches"][k] != n for k, n in need.items()):
+        fail(f"the bf16 step's conv launches {out['step_launches']}, want {need}")
+    out["step_hold"] = fp64_hold(kern, plain, fp64_step(make, prep0, crit, assign),
+                                 "bf16 training step, scene 0", spread=(nudged_plain,))
+    del kern, plain, nudged_plain
+    out["step_drift"] = k1_bf16_step_drift(make(), prep0, crit, "bf16 training step, scene 0")
+    for mode in (None, "bf16"):
+        with conv_dtype(mode):
+            ms, losses, bad = timed_steps(train_step.make_train_step, make(), prep0, crit,
+                                          TRAIN_LR, n=4)
+        out[f"step_ms_{mode or 'fp32'}"] = ms
+        if bad:
+            fail(f"the batch-1 step in {mode or 'fp32'} mode: not finite: {bad}")
+        print(f"batch-1 step, scene 0, {mode or 'fp32'} mode: median {ms:.1f} ms of 4 after a "
+              f"cold one; loss {losses['loss']:.6g}", flush=True)
+    with conv_dtype("bf16"):
+        m = make()
+        st, fn = create_train_state(m, lr=TRAIN_LR), train_step.make_train_step(m, crit)
+        profile_request(lambda: fn(st, prep0, TRAIN_LR), "bf16 training step, scene 0")
+    del prep0
+
+    # the trainer at batch 4, one epoch
+    vc = port_train.voxel_cfg(full_config())
+    ds = GPLabelled(SyntheticDataset(n_scenes=BF16_TRAIN_SCENES, training=True, voxel_cfg=vc,
+                                     **FULL_SCENE))
+    with conv_dtype("bf16"):
+        tr = trainer_phase(dev, os.path.join(root, "train"), full_config(), ds,
+                           dict(need, fps=1, dyco=1), label="bf16 trainer")
+    out["trainer_launches"], out["trainer_ms"] = tr["launches"], statistics.median(tr["step_ms"])
+    if tr["launches"]["subm_conv"]:
+        fail(f"the bf16 trainer launched the fp32 K1 forward: {tr['launches']}")
+    print(f"bf16 trainer, batch {BATCH}: a step {out['trainer_ms']:.1f} ms (fp32 trainer in this "
+          f"run: {side('trainer_ms')})", flush=True)
+    del tr
+    torch.cuda.empty_cache()
+
+    # SPFormer's batch-4 step in both modes
+    spf_cfg = spformer_config()
+    loader = build_dataloader(ds, spf_cfg.train.batch_size, training=True, seed=0, epoch=1,
+                              num_workers=DATA_WORKERS)
+    lb = next(loader)
+    loader.close()
+    prepared = port_train.make_prepare(spf_cfg, dev)(lb.points, lb.batch_size)
+    spf_crit = port_train.build_model(spf_cfg, "cpu")[1]
+    spf_caps = [lp.grid.capacity for lp in prepared.batch.plan.levels]
+    spf_need = bf16_counts(SPFormerConfig(), spf_caps, prepared.batch.plan.levels)
+    for mode in (None, "bf16"):
+        with conv_dtype(mode):
+            zero_counts()
+            ms, losses, bad = timed_steps(train_step.make_spformer_train_step, spformer_model(dev),
+                                          prepared, spf_crit, spf_cfg.train.lr, n=1)
+            launches = read_counts()
+        out[f"spformer_ms_{mode or 'fp32'}"] = ms
+        if bad:
+            fail(f"SPFormer's batch-4 step in {mode or 'fp32'} mode: not finite: {bad}")
+        print(f"SPFormer step, batch {spf_cfg.train.batch_size}, {mode or 'fp32'} mode: {ms:.1f} "
+              f"ms after a cold one; loss {losses['loss']:.6g}; launches over both {launches}",
+              flush=True)
+    if launches["subm_conv_bf16"] != 2 * spf_need["subm_conv_bf16"] or launches["subm_conv"]:
+        fail(f"SPFormer's bf16 steps did not run their forward convs through K1-bf16: {launches}")
+    out["spformer_launches"] = launches
+    del prepared
+    torch.cuda.empty_cache()
+
+    # the learning smoke's ISBNet in bf16
+    with conv_dtype("bf16"):
+        zero_counts()
+        res = smoke_learn.run("isbnet", LEARN_STEPS, dev, log=None)
+        torch.cuda.synchronize()
+        out["learn_launches"] = read_counts()
+    losses, r = res["losses"], res["result"]
+    first, last = statistics.mean(losses[:LEARN_WINDOW]), statistics.mean(losses[-LEARN_WINDOW:])
+    out.update(learn_first=first, learn_last=last, learn_ap25=r["all_ap_25%"],
+               learn_steps_per_s=LEARN_STEPS / res["seconds"])
+    print(f"bf16 learn, isbnet: loss {losses[0]:.4f} -> {losses[-1]:.4f} (the first "
+          f"{LEARN_WINDOW} steps' mean {first:.4f}, the last's {last:.4f}); "
+          f"{out['learn_steps_per_s']:.2f} steps/s (fp32 in this run: "
+          f"{side('learn_steps_per_s', '.2f', '')}); AP {r['all_ap']:.4f} AP50 {r['all_ap_50%']:.4f} "
+          f"AP25 {r['all_ap_25%']:.4f} (fp32 in this run: {side('learn_ap25', '.4f', '')}); launches "
+          f"{out['learn_launches']}", flush=True)
+    if not last < first:
+        fail(f"bf16 learn: the loss did not fall ({first:.4f} -> {last:.4f})")
+    if not r["all_ap_25%"] > smoke_learn.AP25_FLOOR:
+        fail(f"bf16 learn: AP25 {r['all_ap_25%']:.4f} <= {smoke_learn.AP25_FLOOR}")
+    if not out["learn_launches"]["subm_conv_bf16"] or out["learn_launches"]["subm_conv"]:
+        fail(f"bf16 learn: the forward convs did not run through K1-bf16: {out['learn_launches']}")
+    print(f"bf16 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def s3dis_step_alone(dev) -> None:
     """``s3dis_step_phase`` on the written training rooms, alone."""
     from gapro_tpu_torch import cuda_build
@@ -4671,6 +5122,7 @@ SINGLE_PHASES = {
         dev, [scene_inputs(0)[1], scene_inputs(1)[1]]),
     "dryrun": in_build_dir(dryrun_phase, "chip_smoke_dryrun"),
     "visualization": in_build_dir(visualization_phase, "chip_smoke_vis"),
+    "bf16": lambda dev: in_build_dir(bf16_phase, "chip_smoke_bf16")(dev, None),
 }
 
 
@@ -4712,8 +5164,8 @@ def main() -> None:
     sass = sass_counts()
     print("tensor-core and cluster-barrier instructions in the SASS (cuobjdump -sass): "
           + (json.dumps(sass) if sass else "cuobjdump not found, not counted"), flush=True)
-    if sass and (sass["subm_conv"]["HGMMA"] == 0 or sass["subm_conv_dw"]["HMMA"] == 0
-                 or sass["dyco"]["HGMMA"] == 0):
+    if sass and (sass["subm_conv"]["HGMMA"] == 0 or sass["subm_conv_bf16"]["HGMMA"] == 0
+                 or sass["subm_conv_dw"]["HMMA"] == 0 or sass["dyco"]["HGMMA"] == 0):
         fail(f"a conv kernel or K5 was built without its tensor-core instructions: {sass}")
     if sass and (sass["fps"]["CGABAR"] == 0 or sass["fps"]["STAS"] == 0):
         fail(f"K4 was built without its cluster barriers or st.async: {sass['fps']}")
@@ -4966,6 +5418,13 @@ def main() -> None:
 
     # ---- 24. the visualization CLI on the test CLI's exports -----------------
     vis = in_build_dir(visualization_phase, "chip_smoke_vis")(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 25. the bf16 conv mode: K1-bf16, the request, the step, the trainer,
+    # SPFormer's step and the learning smoke, beside this run's fp32 paths ---
+    bf = in_build_dir(bf16_phase, "chip_smoke_bf16")(dev, dict(
+        request_ms=statistics.median(times), trainer_ms=statistics.median(trainer["step_ms"]),
+        learn_steps_per_s=learn["isbnet"]["steps_per_s"], learn_ap25=learn["isbnet"]["ap25"]))
 
     tl, t4 = train_launches, trainer["launches"]
     s3t = s3["trainer"]["launches"]
@@ -5152,6 +5611,24 @@ def main() -> None:
             max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound"],
             bound_by="bytes" if k["bytes_ms"] >= k["ops_ms"] else "operations",
             library_ms=None, **extra))
+    k1b = bf["k1"]
+    kernels.insert(1, dict(
+        name="subm_conv_bf16", route="cuda", source="gapro_tpu_torch/csrc/subm_conv_bf16.cu",
+        replaces="gapro_tpu/sparse/window_conv.py:263",
+        launches=bf["request_launches"]["subm_conv_bf16"], max_abs_err=k1b["err"], ms=k1b["ms"],
+        plain_ms=k1b["plain_ms"], bound_ms=k1b["bound"],
+        bound_by="bytes" if k1b["bytes_ms"] >= k1b["ops_ms"] else "operations", library_ms=None,
+        fp32_k1_ms=k1b["fp32_ms"], tflops=k1b["flops"] / k1b["ms"] / 1e9,
+        past_rtol_share=k1b["over"], fp64_rms_ratio=k1b["fp64"], fp64_drift_ulp=k1b["drift"],
+        step_fp64_drift_ulp=bf["step_drift"],
+        train_launches=bf["step_launches"]["subm_conv_bf16"],
+        train_b4_launches=bf["trainer_launches"]["subm_conv_bf16"],
+        spformer_b4_launches=bf["spformer_launches"]["subm_conv_bf16"] // 2,
+        learn_isbnet_launches=bf["learn_launches"]["subm_conv_bf16"],
+        request_ms=bf["request_ms"], step_ms=bf["step_ms_bf16"], fp32_step_ms=bf["step_ms_fp32"],
+        train_b4_ms=bf["trainer_ms"], spformer_b4_ms=bf["spformer_ms_bf16"],
+        fp32_spformer_b4_ms=bf["spformer_ms_fp32"], learn_ap25=bf["learn_ap25"],
+        sass=sass.get("subm_conv_bf16")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

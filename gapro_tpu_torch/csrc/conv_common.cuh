@@ -1,8 +1,9 @@
-// Device helpers shared by the two conv kernels, subm_conv.cu (K1, and
-// dfeats through it) and subm_conv_dw.cu (dW): cp.async copies into shared
-// memory, the TF32 split of the 3xTF32 products, and untruncate. Each
-// kernel includes this file inside its own anonymous namespace, after
-// <cuda_runtime.h> and <stdint.h>.
+// Device helpers shared by the conv kernels, subm_conv.cu (K1, and dfeats
+// through it), subm_conv_bf16.cu (K1-bf16) and subm_conv_dw.cu (dW):
+// cp.async copies into shared memory, the wgmma descriptor and
+// synchronisation of the two K1 forms, the TF32 split of the 3xTF32
+// products, and untruncate (K1 and dW). Each kernel includes this file
+// inside its own anonymous namespace, after <cuda_runtime.h> and <stdint.h>.
 
 #pragma once
 
@@ -18,6 +19,24 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint32_t tf32(float x) {

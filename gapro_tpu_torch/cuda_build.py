@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("subm_conv", "subm_conv_dw", "fps", "dyco")
+SOURCES = ("subm_conv", "subm_conv_bf16", "subm_conv_dw", "fps", "dyco")
 
 # fps.cu must round every multiply and add on its own, as the plain version
 # and the JAX package do: a contracted FMA flips near-tied argmaxes.
@@ -108,6 +108,7 @@ def launch_counts() -> dict:
     from .sparse import conv
 
     return {"subm_conv": conv.subm_conv_cuda.launches,
+            "subm_conv_bf16": conv.subm_conv_bf16_cuda.launches,
             "subm_conv_dfeats": conv.subm_conv_dfeats_cuda.launches,
             "subm_conv_dw": conv.subm_conv_dw_cuda.launches, "fps": fps.fps_cuda.launches,
             "dyco": dyco.dyco_cuda.launches}

@@ -1,11 +1,20 @@
 """Sparse convolutions (``gapro_tpu/sparse/conv.py``).
 
+* ``compute_dtype``: the convs' operand type, ``GAPRO_CONV_DTYPE`` read on
+  every call as the JAX package's ``_compute_dtype`` reads it: bfloat16
+  for ``bf16`` (the reference's AMP analog), float32 otherwise. In bf16
+  every conv rounds its features and weights to bf16 (to nearest even, as
+  XLA's convert) and sums the exact products in fp32; the output is fp32.
+  A subm conv on a level with window tables on the TPU (``LevelPlan.window``)
+  also rounds each tap's sum to bf16, as the TPU's window kernel does.
 * ``subm_conv``: the 3x3x3 submanifold conv as one zero-sentinel gather
   plus one matmul. It is the plain PyTorch version of kernel K1,
-  ``csrc/subm_conv.cu``.
+  ``csrc/subm_conv.cu``; ``subm_conv_bf16`` that of K1-bf16,
+  ``csrc/subm_conv_bf16.cu``.
 * ``subm_conv_cuda``: K1's wrapper. For a CPU tensor it takes ``subm_conv``;
   for a CUDA tensor it launches the kernel or raises. It counts its launches
-  in ``subm_conv_cuda.launches``.
+  in ``subm_conv_cuda.launches``. ``subm_conv_bf16_cuda`` is K1-bf16's, the
+  forward of every subm conv in bf16.
 * ``SubmConvFn``: the conv as a ``torch.autograd.Function`` whose backward
   mirrors ``_window_conv_bwd`` (``gapro_tpu/sparse/window_conv.py``), the
   TPU's backward kernels K2 and K3, with the incoming gradient masked to
@@ -18,15 +27,21 @@
     ``subm_conv_dw_cuda`` the kernel ``csrc/subm_conv_dw.cu``.
 
   It saves only ``feats``, ``weights``, the table and ``valid``, never the
-  [V, 27 * Cin] gather.
+  [V, 27 * Cin] gather. In bf16 the forward is K1-bf16; a level with
+  window tables on the TPU (``LevelPlan.window``) keeps this fp32
+  backward, as ``_window_conv_bwd`` casts dout to the saved fp32 input's
+  type; another level takes autograd of the plain bf16 conv, which
+  rounds where XLA's transpose of the JAX package's gather-GEMM rounds
+  (the table's gradient rows in bf16, added in bf16; dW rounded to bf16).
 * ``down_conv`` / ``inverse_conv``: the stride-2 kernel-2 pair sharing one
   rulebook. The JAX package computes them outside any Pallas kernel, and so
-  does the port.
+  does the port, in bf16 as ``subm_conv``'s plain version does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -54,15 +69,54 @@ def gather_rows(feats, idx):
     return _zero_padded(feats)[_padded_index(idx, feats.shape[0])]
 
 
-def subm_conv(feats, nbr_idx, weights, valid):
-    """Plain version of K1.
+def compute_dtype() -> torch.dtype:
+    """torch.bfloat16 where ``GAPRO_CONV_DTYPE`` is ``bf16``, else
+    torch.float32 (``gapro_tpu/sparse/conv.py:_compute_dtype``)."""
+    return torch.bfloat16 if os.environ.get("GAPRO_CONV_DTYPE") == "bf16" else torch.float32
+
+
+def _operands(feats, idx, weights, dtype):
+    """The gathered rows ``feats[idx]`` and the weights as a conv multiplies
+    them. In bf16 both are rounded to bf16 and held in ``feats``' type,
+    where their products are exact: the JAX package's bf16 dot with an fp32
+    result. The rows are gathered from the bf16 table, so that autograd
+    adds their gradients in bf16, as XLA's transpose of the gather does."""
+    if dtype == torch.float32:
+        return gather_rows(feats, idx), weights
+    return gather_rows(feats.to(dtype), idx).to(feats.dtype), weights.to(dtype).to(feats.dtype)
+
+
+def subm_conv(feats, nbr_idx, weights, valid, dtype=None):
+    """Plain version of K1 (fp32) and of K1-bf16.
 
     feats [V, Cin], nbr_idx [V, 27] int (-1 missing), weights [27, Cin,
-    Cout], valid [V] bool -> [V, Cout]; invalid rows are 0.
+    Cout], valid [V] bool -> [V, Cout]; invalid rows are 0. ``dtype`` is
+    the operands' type, ``compute_dtype()`` if None.
     """
     v, cin = feats.shape
     k, _, cout = weights.shape
-    out = gather_rows(feats, nbr_idx).reshape(v, k * cin) @ weights.reshape(k * cin, cout)
+    g, w = _operands(feats, nbr_idx, weights, compute_dtype() if dtype is None else dtype)
+    out = g.reshape(v, k * cin) @ w.reshape(k * cin, cout)
+    return torch.where(valid[:, None], out, 0.0)
+
+
+def subm_conv_bf16(feats, nbr_idx, weights, valid, window: bool):
+    """Plain version of K1-bf16: the function the JAX package computes on a
+    level in bf16. Without window tables, its XLA gather-GEMM's
+    (``subm_conv`` in bf16). With them, its TPU kernel's
+    (``window_conv.py:_fwd_kernel``), whose one-hot gather takes each tap's
+    sum over the channels cast to the bf16 table's type: each tap
+    ``x[nbr[i, k]] @ W[k]``, of the bf16 operands, rounded to bf16, the taps
+    added in k order."""
+    if not window:
+        return subm_conv(feats, nbr_idx, weights, valid, torch.bfloat16)
+    table = _zero_padded(feats.to(torch.bfloat16)).to(feats.dtype)
+    idx = _padded_index(nbr_idx, feats.shape[0])
+    w = weights.to(torch.bfloat16).to(feats.dtype)
+    out = None
+    for k in range(nbr_idx.shape[1]):
+        tap = (table[idx[:, k]] @ w[k]).to(torch.bfloat16).to(feats.dtype)
+        out = tap if out is None else out + tap
     return torch.where(valid[:, None], out, 0.0)
 
 
@@ -119,7 +173,7 @@ def subm_conv_cuda(feats, nbr_idx, weights, valid, tables):
     built from ``nbr_idx`` and ``valid``; it gives the row order and tile
     masks. The plain version reads no table."""
     if feats.device.type == "cpu":
-        return subm_conv(feats, nbr_idx, weights, valid)
+        return subm_conv(feats, nbr_idx, weights, valid, torch.float32)
     _check_cuda_args(feats, nbr_idx, weights, valid)
     out = _launch_k1(feats, nbr_idx, weights.transpose(1, 2), valid, tables)
     subm_conv_cuda.launches += 1
@@ -129,13 +183,29 @@ def subm_conv_cuda(feats, nbr_idx, weights, valid, tables):
 subm_conv_cuda.launches = 0
 
 
+def subm_conv_bf16_cuda(feats, nbr_idx, weights, valid, tables, window: bool):
+    """K1-bf16 (``csrc/subm_conv_bf16.cu``, bf16 on the tensor cores):
+    ``subm_conv_bf16`` (``window``: the level's ``LevelPlan.window``). Takes
+    fp32 features and weights, as ``subm_conv_cuda`` does, and rounds them
+    to bf16 itself. Counts its launches in ``subm_conv_bf16_cuda.launches``."""
+    if feats.device.type == "cpu":
+        return subm_conv_bf16(feats, nbr_idx, weights, valid, window)
+    _check_cuda_args(feats, nbr_idx, weights, valid)
+    out = _launch_k1_bf16(feats, nbr_idx, weights.transpose(1, 2), valid, tables, window)
+    subm_conv_bf16_cuda.launches += 1
+    return out
+
+
+subm_conv_bf16_cuda.launches = 0
+
+
 def subm_conv_dfeats_cuda(dout, nbr_idx, w_rev, valid, tables):
     """The dfeats half of the backward: K1 on (dout, nbr, w_rev), counted in
     ``subm_conv_dfeats_cuda.launches`` apart from the forward's launches.
     ``w_rev[k] = W[26 - k]^T``; the kernel reads its transpose, ``W[26 - k]``,
     which is K-major for this product."""
     if dout.device.type == "cpu":
-        return subm_conv(dout, nbr_idx, w_rev, valid)
+        return subm_conv(dout, nbr_idx, w_rev, valid, torch.float32)
     if w_rev.dim() != 3 or w_rev.shape[:2] != (27, dout.shape[1]):
         raise ValueError(f"w_rev must be [27, {dout.shape[1]}, Cin], got {tuple(w_rev.shape)}")
     _check_args((("dout", dout),), dout, nbr_idx, valid)
@@ -184,6 +254,42 @@ def _launch_k1(a, nbr_idx, b, valid, tables):
     return out
 
 
+def _launch_k1_bf16(feats, nbr_idx, b, valid, tables, window):
+    """out [V, N] = K1-bf16 over bf16(feats) [V, K] and b [27, N, K], fp32,
+    a view read through its strides and rounded to bf16 by the kernel's
+    prologue; each tap rounded to bf16 where ``window``."""
+    order, masks = tables.rows()
+    v, n, k_real = feats.shape[0], b.shape[1], b.shape[2]
+    a = _pad8(feats.to(torch.bfloat16), 1).contiguous()  # the bf16 table: one elementwise pass
+    k = a.shape[1]
+    lib = cuda_build.load("subm_conv_bf16")
+    lib.gapro_subm_conv_bf16_splits.argtypes = [ctypes.c_int] * 3
+    lib.gapro_subm_conv_bf16_splits.restype = ctypes.c_int
+    lib.gapro_subm_conv_bf16_b_elems.argtypes = [ctypes.c_int] * 2
+    lib.gapro_subm_conv_bf16_b_elems.restype = ctypes.c_longlong
+    fn = lib.gapro_subm_conv_bf16_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        splits = lib.gapro_subm_conv_bf16_splits(v, k, n)
+        if splits < 1:
+            raise RuntimeError("subm_conv_bf16_cuda: the device query failed")
+        out = torch.empty((v, n), dtype=torch.float32, device=a.device)
+        # per-split partial sums of the deep levels (see csrc/subm_conv_bf16.cu)
+        partial = (torch.empty((splits, v, n), dtype=torch.float32, device=a.device)
+                   if splits > 1 else None)
+        bt = torch.empty(lib.gapro_subm_conv_bf16_b_elems(k, n), dtype=torch.bfloat16,
+                         device=a.device)
+        err = fn(
+            a.data_ptr(), nbr_idx.data_ptr(), b.data_ptr(), *b.stride(), k_real,
+            valid.data_ptr(), order.data_ptr(), masks.data_ptr(), out.data_ptr(),
+            0 if partial is None else partial.data_ptr(), bt.data_ptr(), v, k, n, splits,
+            int(window), torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "subm_conv_bf16_cuda")
+    return out
+
+
 def subm_conv_dw_cuda(feats, nbr_idx, dout, tables):
     """dW kernel (``csrc/subm_conv_dw.cu``, 3xTF32 on the tensor cores):
     ``subm_conv_dw`` on the card, deterministic. ``tables`` is the level's
@@ -224,17 +330,26 @@ subm_conv_dw_cuda.launches = 0
 class SubmConvFn(torch.autograd.Function):
     """``subm_conv`` with the backward of ``_window_conv_bwd``. The wrappers
     are looked up at call time, so a caller may swap in the plain versions.
-    ``tables`` is the level's ``ConvTables``, shared by the three kernels."""
+    ``tables`` is the level's ``ConvTables``, shared by the three kernels;
+    ``window`` the level's ``LevelPlan.window``, read in bf16 only."""
 
     @staticmethod
-    def forward(ctx, feats, weights, nbr_idx, valid, tables):
+    def forward(ctx, feats, weights, nbr_idx, valid, tables, window=True):
         ctx.save_for_backward(feats, weights, nbr_idx, valid)
         ctx.tables = tables
+        bf16 = compute_dtype() == torch.bfloat16
+        ctx.plain_bf16 = bf16 and not window
+        if bf16:
+            return subm_conv_bf16_cuda(feats, nbr_idx, weights, valid, tables=tables,
+                                       window=window)
         return subm_conv_cuda(feats, nbr_idx, weights, valid, tables=tables)
 
     @staticmethod
     def backward(ctx, dout):
         feats, weights, nbr_idx, valid = ctx.saved_tensors
+        if ctx.plain_bf16:
+            return (*_plain_bf16_grads(feats, weights, nbr_idx, valid, dout,
+                                       ctx.needs_input_grad[:2]), None, None, None, None)
         dout = torch.where(valid[:, None], dout, 0.0).contiguous()
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
@@ -242,22 +357,37 @@ class SubmConvFn(torch.autograd.Function):
             dfeats = subm_conv_dfeats_cuda(dout, nbr_idx, w_rev, valid, tables=ctx.tables)
         if ctx.needs_input_grad[1]:
             dw = subm_conv_dw_cuda(feats, nbr_idx, dout, tables=ctx.tables)
-        return dfeats, dw, None, None, None
+        return dfeats, dw, None, None, None, None
+
+
+def _plain_bf16_grads(feats, weights, nbr_idx, valid, dout, needs):
+    """(dfeats, dW) of a level without window tables in bf16: autograd of
+    the plain bf16 conv, the JAX package's ``jax.grad`` of its XLA
+    ``subm_conv`` there. None where ``needs`` says no gradient."""
+    with torch.enable_grad():
+        f = feats.detach().requires_grad_(needs[0])
+        w = weights.detach().requires_grad_(needs[1])
+        out = subm_conv(f, nbr_idx, w, valid, torch.bfloat16)
+        wrt = [t for t in (f, w) if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, dout))
+    return tuple(next(grads) if need else None for need in needs)
 
 
 def subm_conv_auto(feats, level_plan, weights):
     """The subm conv of one U-Net level: K1 on every level (the TPU's
-    8192-capacity floor existed only for its window tables), with the
-    backward of ``SubmConvFn``."""
+    8192-capacity floor existed only for its window tables), K1-bf16 in
+    bf16, with the backward of ``SubmConvFn``."""
     return SubmConvFn.apply(feats.contiguous(), weights.contiguous(), level_plan.subm_nbr,
-                            level_plan.grid.valid, level_plan.conv)
+                            level_plan.grid.valid, level_plan.conv, level_plan.window)
 
 
 def down_conv(feats, child_idx, weights, out_valid=None):
-    """Stride-2 kernel-2 conv: out[p] = sum_kk feats[child_idx[p, kk]] @ W[kk]."""
+    """Stride-2 kernel-2 conv: out[p] = sum_kk feats[child_idx[p, kk]] @ W[kk],
+    with the operands of ``compute_dtype()``."""
     k, cin, cout = weights.shape
     vc = child_idx.shape[0]
-    out = gather_rows(feats, child_idx).reshape(vc, k * cin) @ weights.reshape(k * cin, cout)
+    g, w = _operands(feats, child_idx, weights, compute_dtype())
+    out = g.reshape(vc, k * cin) @ w.reshape(k * cin, cout)
     if out_valid is not None:
         out = torch.where(out_valid[:, None], out, 0.0)
     return out
@@ -265,8 +395,9 @@ def down_conv(feats, child_idx, weights, out_valid=None):
 
 def inverse_conv(coarse_feats, parent, offset_id, weights, valid):
     """Transpose of ``down_conv`` on the shared rulebook:
-    fine[i] = coarse[parent(i)] @ W[offset(i)]."""
-    gathered = gather_rows(coarse_feats, parent)
+    fine[i] = coarse[parent(i)] @ W[offset(i)], with the operands of
+    ``compute_dtype()``."""
+    gathered, weights = _operands(coarse_feats, parent, weights, compute_dtype())
     out = None
     for kk in range(8):
         sel = (offset_id == kk)[:, None]

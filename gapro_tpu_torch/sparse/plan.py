@@ -18,6 +18,11 @@
   ``tile_masks``), and, on the first backward only, the per-offset pair
   lists of the dW kernel (``pair_lists``). Plain PyTorch at static shapes,
   with no host sync. None of them changes a table the JAX package has.
+* ``window_level``: whether the JAX package gives a level window tables on
+  a TPU. The port builds none, but keeps the flag on ``LevelPlan``: in the
+  bf16 conv mode a window level's backward is the window kernel's (fp32),
+  and another level's rounds where XLA's transpose rounds
+  (``sparse/conv.py:SubmConvFn``).
 """
 
 from __future__ import annotations
@@ -42,6 +47,18 @@ _DEFAULT_TILE = 256
 _TILE_FLOOR = 8192
 
 KOFF = 27
+def window_level(lvl: int, capacity: int) -> bool:
+    """The TPU's test for window tables at level ``lvl``
+    (gapro_tpu/sparse/plan.py: ``_tile_for`` and ``_build_unet_plan_jit``
+    with ``use_window`` on, as ``window_conv_enabled()`` is on a TPU): a
+    capacity that is a multiple of the level's tile and at least
+    ``_TILE_FLOOR``."""
+    tile = _TILES[lvl] if lvl < len(_TILES) else _DEFAULT_TILE
+    if capacity % tile:
+        tile = _DEFAULT_TILE
+    return capacity % tile == 0 and capacity >= _TILE_FLOOR
+
+
 # Output rows of one K1 block (csrc/subm_conv.cu: BM, wgmma's M).
 TILE_ROWS = 64
 
@@ -121,6 +138,7 @@ class LevelPlan:
     offset_id: Optional[torch.Tensor] = None  # [V] int32 in [0, 8)
     down_child: Optional[torch.Tensor] = None  # [V_next, 8] int32, -1 absent
     dropped_next: int = 0  # coarse voxels dropped by the next capacity
+    window: bool = False  # window tables on the TPU (window_level)
     conv: ConvTables = field(init=False, repr=False)  # built lazily, on the card only
 
     def __post_init__(self):
@@ -202,12 +220,13 @@ def build_unet_plan(grid: SparseGrid, num_levels: int, shrink=0.5) -> UNetPlan:
     g = grid
     for lvl in range(num_levels):
         nbr = subm_neighbor_table(g)
+        window = window_level(lvl, g.capacity)
         if lvl < num_levels - 1:
             g_next, parent, offset_id, child, dropped = downsample_grid(g, caps[lvl + 1])
             levels.append(LevelPlan(grid=g, subm_nbr=nbr, parent=parent,
                                     offset_id=offset_id, down_child=child,
-                                    dropped_next=dropped))
+                                    dropped_next=dropped, window=window))
             g = g_next
         else:
-            levels.append(LevelPlan(grid=g, subm_nbr=nbr))
+            levels.append(LevelPlan(grid=g, subm_nbr=nbr, window=window))
     return UNetPlan(levels=levels)

@@ -64,3 +64,23 @@ def test_hold_fails_a_perturbed_path(tiny_step):
              for k, g in gp.items()}
     with pytest.raises(SystemExit):
         chip_smoke.fp64_hold((lp, noisy, sp), (lp, gp, sp), ref, "tiny step, perturbed")
+
+
+def test_hold_with_a_plain_spread(tiny_step):
+    """With ``spread`` the kernel path's error is measured by the largest of
+    the plain runs', each plain run's in the mirror by the largest of the
+    kernel path's and the others': three runs as far from fp64 as one
+    another (one noise, its
+    sign flipped by run) pass with every ratio near 1, and a kernel path
+    ten times as far fails."""
+    (lp, gp, sp), ref = tiny_step
+    rng = np.random.default_rng(0)
+    noise = {k: None if g is None else
+             1e-3 * g.abs().max() * torch.from_numpy(rng.standard_normal(g.shape)).float()
+             for k, g in gp.items()}
+    run = lambda sign: (lp, {k: None if g is None else g + sign * noise[k]
+                             for k, g in gp.items()}, sp)
+    out = chip_smoke.fp64_hold(run(1), run(-1), ref, "tiny step, three runs", spread=(run(1),))
+    assert out["kernel_over"] == out["plain_over"] == 0 and out["largest"] < 1.01
+    with pytest.raises(SystemExit):
+        chip_smoke.fp64_hold(run(10), run(-1), ref, "tiny step, ten times", spread=(run(1),))

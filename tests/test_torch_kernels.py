@@ -393,3 +393,74 @@ def test_dyco_cuda_fragment_mapping(cuda_device, m):
         f"{int(wrong.sum())} logits differ, first at (query, superpoint) "
         f"{wrong[0].nonzero()[0].tolist()}: {float(got[0][wrong[0]][0])} vs "
         f"{float(want[0][wrong[0]][0])}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("lvl,cin,cout", [(0, 6, 32), (0, 24, 16), (0, 32, 32), (1, 64, 64),
+                                          (1, 96, 96), (1, 384, 192)])
+def test_k1_bf16_on_a_batch2_plan(cuda_device, batch2_plan, lvl, cin, cout, window):
+    """K1-bf16 on the level's own tables at the model's widths (the stem
+    padded from 6 to 8 columns; at 24 a k-step holds the end of one tap and
+    the start of the next), in both of its functions (``window``: each tap's
+    sum rounded to bf16), against its plain version on the same inputs: the
+    same exact products summed in another order, within 1e-4 of the scale;
+    with ``window`` an entry where an fp32 difference flipped a tap's
+    rounding lies one bf16 step of that tap away, within 2^-8 of the scale,
+    in at most 1% of the entries. Invalid rows exactly 0, equal bit for bit
+    to a launch on tables built anew; bf16 features refused."""
+    lp = batch2_plan.levels[lvl]
+    nbr, valid = lp.subm_nbr, lp.grid.valid
+    g = torch.Generator().manual_seed(cin + cout)
+    feats = (torch.randn(nbr.shape[0], cin, generator=g).to(cuda_device)
+             * valid[:, None]).contiguous()
+    bound = (3.0 / (27 * cin)) ** 0.5
+    w = ((torch.rand(27, cin, cout, generator=g) * 2 - 1) * bound).to(cuda_device)
+    before = conv.subm_conv_bf16_cuda.launches
+    out = conv.subm_conv_bf16_cuda(feats, nbr, w, valid, lp.conv, window)
+    again = conv.subm_conv_bf16_cuda(feats, nbr, w, valid, ConvTables(nbr, valid), window)
+    torch.cuda.synchronize()
+    assert conv.subm_conv_bf16_cuda.launches == before + 2
+    assert torch.equal(out, again)
+    want = conv.subm_conv_bf16(feats, nbr, w, valid, window)
+    scale = max(1.0, float(want.abs().max()))
+    diff = (out - want).abs()
+    if window:
+        assert float(diff.max()) <= 2.0 ** -8 * scale
+        assert float((diff > 1e-4 * scale).float().mean()) <= 1e-2
+    else:
+        assert float(diff.max()) <= 1e-4 * scale
+    assert (out[~valid] == 0).all()
+    with pytest.raises(TypeError):
+        conv.subm_conv_bf16_cuda(feats.bfloat16(), nbr, w, valid, lp.conv, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [False, True])
+def test_bf16_mode_conv_on_the_card(cuda_device, monkeypatch, window):
+    """Under ``GAPRO_CONV_DTYPE=bf16`` ``SubmConvFn`` takes its forward from
+    K1-bf16 (never the fp32 K1) and its backward by the level: the fp32
+    kernels (dfeats by K1, dW) on a window level; on another, autograd of
+    the plain bf16 conv, within one bf16 step of the scale of it (its
+    gradient rows are added in bf16, on the card in another order)."""
+    monkeypatch.setenv("GAPRO_CONV_DTYPE", "bf16")
+    grid = _grid(cuda_device)
+    nbr = subm_neighbor_table(grid)
+    g = torch.Generator().manual_seed(5)
+    feats = (torch.randn(CAP, 32, generator=g).to(cuda_device) * grid.valid[:, None]).contiguous()
+    w = (torch.randn(27, 32, 16, generator=g) / 16).to(cuda_device)
+    dout = torch.randn(CAP, 16, generator=g).to(cuda_device)
+    counts = lambda: (conv.subm_conv_cuda.launches, conv.subm_conv_bf16_cuda.launches,
+                      conv.subm_conv_dfeats_cuda.launches, conv.subm_conv_dw_cuda.launches)
+    before = counts()
+    tf, tw = feats.clone().requires_grad_(), w.clone().requires_grad_()
+    out = conv.SubmConvFn.apply(tf, tw, nbr, grid.valid, ConvTables(nbr, grid.valid), window)
+    (out * dout).sum().backward()
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(counts(), before))
+    assert moved == ((0, 1, 1, 1) if window else (0, 1, 0, 0))
+    if not window:
+        pf, pw = feats.clone().requires_grad_(), w.clone().requires_grad_()
+        (conv.subm_conv(pf, nbr, pw, grid.valid, torch.bfloat16) * dout).sum().backward()
+        for a, b in ((tf.grad, pf.grad), (tw.grad, pw.grad)):
+            assert float((a - b).abs().max()) <= 2.0 ** -8 * float(b.abs().max())

@@ -413,8 +413,10 @@ def computed_slots(masks, cin: int) -> int:
 
 def sass_counts() -> dict:
     """Instructions in the SASS (``cuobjdump -sass``) that show a kernel
-    runs as designed: tensor-core instructions in the two conv libraries and
-    K5's (HGMMA is wgmma, HMMA mma.sync); in the FPS library the cluster barriers
+    runs as designed: tensor-core instructions in the conv libraries and
+    K5's (HGMMA is wgmma, HMMA mma.sync), in K1-bf16's also its copies
+    (LDGSTS: cp.async; UTMALDG: TMA) and cluster barriers (its split
+    reduction); in the FPS library the cluster barriers
     (CGABAR: barrier.cluster arrive and wait), the stores into other blocks'
     shared memory (STAS: st.async), the mbarrier operations (SYNCS) and the
     GPU-scope memory barriers (MEMBAR.ALL.GPU). Empty where the toolkit has
@@ -426,7 +428,8 @@ def sass_counts() -> dict:
     if tool is None:
         return {}
     out = {}
-    for name, ops in (("subm_conv", ("HGMMA", "HMMA")), ("subm_conv_bf16", ("HGMMA", "HMMA")),
+    for name, ops in (("subm_conv", ("HGMMA", "HMMA")),
+                      ("subm_conv_bf16", ("HGMMA", "HMMA", "LDGSTS", "UTMALDG", "CGABAR")),
                       ("subm_conv_dw", ("HGMMA", "HMMA")), ("dyco", ("HGMMA", "HMMA")),
                       ("fps", ("CGABAR", "STAS", "SYNCS", "MEMBAR.ALL.GPU"))):
         sass = subprocess.run([tool, "-sass", str(cuda_build.BUILD_DIR / f"lib{name}.so")],
@@ -668,12 +671,41 @@ def layer_times(fn) -> dict:
     return dict(acc)
 
 
-# The conv kernels and their helpers in a trace: K1 and K1-bf16 with their
-# B tiling and split sum, dW with its split sum.
+# The conv kernels and their helpers in a trace: K1 with its B tiling and
+# split sum, dW with its split sum, K1-bf16 (paired or unpaired) with its
+# prologue.
 CONV_KERNELS = {"subm_conv_kernel": "K1", "tile_b_kernel": "K1",
                 "subm_conv_sum_splits_kernel": "K1", "subm_conv_dw_kernel": "dW",
                 "subm_conv_dw_sum_splits_kernel": "dW", "subm_conv_bf16_kernel": "K1-bf16",
-                "tile_b_bf16_kernel": "K1-bf16", "subm_conv_bf16_sum_splits_kernel": "K1-bf16"}
+                "subm_conv_bf16_kernel_unpaired": "K1-bf16",
+                "subm_conv_bf16_prologue_kernel": "K1-bf16"}
+# The kernel a launch of each is counted by (the others are its helpers).
+CONV_MAIN = ("subm_conv_kernel", "subm_conv_dw_kernel", "subm_conv_bf16_kernel",
+             "subm_conv_bf16_kernel_unpaired")
+
+
+def kernels_a_call(fn, traces: int = 3):
+    """The names of the device kernels one call of ``fn`` launches, from
+    the fullest of ``traces`` torch.profiler traces (CPU and CUDA
+    activities, as ``profile_request``; a trace may lose events, never add
+    one), after a warm call; None where no trace records a kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    best = []
+    for _ in range(traces):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # the demangled name without its namespace, return type and arguments
+        names = [re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", "")
+                        .removeprefix("void ")) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        best = max(best, names, key=len)
+    return best or None
 
 
 def profile_request(fn, what: str, top: int = 12, attempts: int = 3) -> None:
@@ -705,8 +737,7 @@ def profile_request(fn, what: str, top: int = 12, attempts: int = 3) -> None:
             if name:
                 key = CONV_KERNELS[name]
                 conv_ms[key] += e.time_range.elapsed_us() / 1e3
-                conv_n[key] += name in ("subm_conv_kernel", "subm_conv_dw_kernel",
-                                        "subm_conv_bf16_kernel")
+                conv_n[key] += name in CONV_MAIN
         want = {"K1": sum(after[k] - before[k] for k in ("subm_conv", "subm_conv_dfeats")),
                 "dW": after["subm_conv_dw"] - before["subm_conv_dw"],
                 "K1-bf16": after["subm_conv_bf16"] - before["subm_conv_bf16"]}
@@ -742,7 +773,7 @@ def profile_request(fn, what: str, top: int = 12, attempts: int = 3) -> None:
           f"launches of subm_conv_kernel, dW {conv_ms['dW']:.3f} ms in {conv_n['dW']} launches of "
           f"subm_conv_dw_kernel"
           + (f", K1-bf16 {conv_ms['K1-bf16']:.3f} ms in {conv_n['K1-bf16']} launches of "
-             f"subm_conv_bf16_kernel" if want["K1-bf16"] else "")
+             f"subm_conv_bf16_kernel (paired or unpaired)" if want["K1-bf16"] else "")
           + f" (each with its helper kernels); the wrappers counted {want}", flush=True)
 
 
@@ -4751,9 +4782,11 @@ def k1_bf16_phase(cfg, caps, levels, dev) -> dict:
     from gapro_tpu_torch.sparse import conv
 
     g = torch.Generator().manual_seed(3)
-    acc = dict(conv_acc(), fp32_ms=0.0, over=0.0)
+    acc = dict(conv_acc(), fp32_ms=0.0, over=0.0, yard_ms=0.0, kernels_a_conv=None)
     print("K1-bf16 subm_conv_bf16_cuda vs plain (per launch; V, Cin, Cout, launches/scene; "
-          "round: the level's taps rounded to bf16, as its TPU window kernel does):", flush=True)
+          "round: the level's taps rounded to bf16, as its TPU window kernel does; tile: "
+          "sparse/conv.py:k1_bf16_schedule; yardstick: a bf16 gather and one cuBLAS product, "
+          "round 0's function in another order, timed and used nowhere else):", flush=True)
     for (v, cin, cout), count in sorted(k1_shape_counts(cfg, caps).items()):
         lp = levels[caps.index(v)]
         valid, nbr, window = lp.grid.valid, lp.subm_nbr, lp.window
@@ -4787,31 +4820,69 @@ def k1_bf16_phase(cfg, caps, levels, dev) -> dict:
         ms = cuda_ms(run, 10)
         pms = cuda_ms(lambda: conv.subm_conv_bf16(feats, nbr, w, valid, window), 5)
         fms = cuda_ms(lambda: conv.subm_conv_cuda(feats, nbr, w, valid, tables=lp.conv), 10)
+        yms, y_out = cuda_ms(bf16_yardstick(feats, nbr, w), 10), bf16_yardstick.out
+        names = kernels_a_call(run)
+        sched = conv.k1_bf16_schedule(v, -(-cin // 8) * 8, cout,
+                                      torch.cuda.get_device_properties(dev).multi_processor_count,
+                                      bool(window))
         nnz = int((nbr >= 0).sum())
         nbytes = v * 27 * 4 + v * cin * 2 + 27 * cin * cout * 2 + v + v * cout * 4
         flops = 2.0 * nnz * cin * cout
         bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
         for key, val in (("ms", ms), ("plain_ms", pms), ("fp32_ms", fms), ("bound", bms),
                          ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3),
-                         ("ops_ms", flops / BF16_FLOPS * 1e3), ("flops", flops)):
+                         ("ops_ms", flops / BF16_FLOPS * 1e3), ("flops", flops),
+                         ("yard_ms", yms)):
             acc[key] += count * val
+        if names is not None:  # None: no trace recorded a kernel
+            acc["kernels_a_conv"] = max(acc["kernels_a_conv"] or 0, len(names))
         acc["err"] = max(acc["err"], err)
         acc["over"] = max(acc["over"], flips / int(valid.sum()) / cout)
         acc["fp64"] = max(acc["fp64"], rms_ratio(rms, plain_rms))
         acc["drift"] = max(acc["drift"], abs(along))
         print(f"  V={v:6d} Cin={cin:3d} Cout={cout:3d} x{count} round {int(window)}: kernel "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), fp32 K1 {fms:.4f} ms, plain "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s; tile {sched.rows}x{sched.cols}"
+              f"{' paired' if sched.paired else ''}, "
+              f"{sched.splits} split(s), kernels a conv: "
+              f"{'not measured' if names is None else f'{len(names)}, ' + ', '.join(names)}), "
+              f"fp32 K1 {fms:.4f} ms, yardstick {yms:.4f} ms ({y_out}), plain "
               f"{pms:.4f} ms, bound {bms:.4f} ms ({by}, bf16), max|err| {err:.3g} ({flips} entries "
               f"past {K1_RTOL} of the scale, a tap's rounding flipped; "
               f"{int(held.sum())} of {int(valid.sum()) * cout} held); against fp64: {drift}",
               flush=True)
     n = sum(k1_shape_counts(cfg, caps).values())
-    print(f"K1-bf16 per scene ({n} launches): kernel {acc['ms']:.3f} ms "
-          f"({acc['flops'] / acc['ms'] / 1e9:.2f} TFLOP/s), fp32 K1 {acc['fp32_ms']:.3f} ms, plain {acc['plain_ms']:.3f} ms, bound "
+    kac = acc["kernels_a_conv"]
+    print(f"K1-bf16 per scene ({n} launches, "
+          f"{'kernels a conv not measured' if kac is None else f'at most {kac} kernels a conv'}): "
+          f"kernel {acc['ms']:.3f} ms ({acc['flops'] / acc['ms'] / 1e9:.2f} TFLOP/s), fp32 K1 "
+          f"{acc['fp32_ms']:.3f} ms, yardstick {acc['yard_ms']:.3f} ms, plain "
+          f"{acc['plain_ms']:.3f} ms, bound "
           f"{acc['bound']:.3f} ms ({acc['bound'] / acc['ms']:.1%} of it reached); against fp64 "
           f"the mean along the sign at most {acc['drift']:.3g} ulp (gate {K1_DRIFT_ULP}), rms "
           f"at most {acc['fp64']:.3g} times the plain version's", flush=True)
     return acc
+
+
+def bf16_yardstick(feats, nbr, w):
+    """K1-bf16's yardstick, a call of two library calls: the rows of the
+    bf16 table gathered (``gather_rows``), then one cuBLAS product with the
+    bf16 weights and an fp32 result (a bf16 one where this PyTorch has no
+    ``out_dtype``; ``bf16_yardstick.out`` says which). Round 0's function,
+    the XLA gather-GEMM, with its sums in another order."""
+    import torch
+
+    from gapro_tpu_torch.sparse import conv
+
+    v, cin = feats.shape
+    table, wt = feats.to(torch.bfloat16), w.reshape(-1, w.shape[2]).to(torch.bfloat16)
+    mm = lambda rows: torch.mm(rows, wt, out_dtype=torch.float32)  # noqa: E731
+    try:
+        mm(table[:8].new_zeros((8, 27 * cin)))
+    except (TypeError, RuntimeError):
+        mm = lambda rows: torch.mm(rows, wt)  # noqa: E731
+    run = lambda: mm(conv.gather_rows(table, nbr).reshape(v, 27 * cin))  # noqa: E731
+    bf16_yardstick.out = str(run().dtype).replace("torch.", "") + " result"
+    return run
 
 
 def k1_bf16_step_drift(model, prepared, crit, what: str) -> float:
@@ -5618,7 +5689,8 @@ def main() -> None:
         launches=bf["request_launches"]["subm_conv_bf16"], max_abs_err=k1b["err"], ms=k1b["ms"],
         plain_ms=k1b["plain_ms"], bound_ms=k1b["bound"],
         bound_by="bytes" if k1b["bytes_ms"] >= k1b["ops_ms"] else "operations", library_ms=None,
-        fp32_k1_ms=k1b["fp32_ms"], tflops=k1b["flops"] / k1b["ms"] / 1e9,
+        fp32_k1_ms=k1b["fp32_ms"], yardstick_ms=k1b["yard_ms"],
+        kernels_a_conv=k1b["kernels_a_conv"], tflops=k1b["flops"] / k1b["ms"] / 1e9,
         past_rtol_share=k1b["over"], fp64_rms_ratio=k1b["fp64"], fp64_drift_ulp=k1b["drift"],
         step_fp64_drift_ulp=bf["step_drift"],
         train_launches=bf["step_launches"]["subm_conv_bf16"],

@@ -40,8 +40,12 @@
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+import math
 import os
+from dataclasses import dataclass
 
 import torch
 
@@ -254,40 +258,181 @@ def _launch_k1(a, nbr_idx, b, valid, tables):
     return out
 
 
+# K1-bf16's schedule (csrc/subm_conv_bf16.cu). A block is two warpgroups:
+# with wgn 1 each takes its own 64 rows by bn columns, with wgn 2 both take
+# the same 64 rows side by side on 2 bn columns. A paired tile takes the
+# k-steps of a chunk in turn on two accumulators, with a ring of stages; an
+# unpaired one a wait after each k-step, one accumulator and one stage. The
+# reduction over the flattened (offset, Cin) axis runs in chunks of
+# K1_BF16_CHUNK columns; the chunks of a tile may be split over the blocks
+# of a cluster (at most K1_BF16_MAX_SPLITS), each split whole taps, until
+# the grid holds about K1_BF16_BLOCKS_PER_SM blocks an SM, keeping at least
+# K1_BF16_MIN_CHUNKS chunks a split.
+K1_BF16_CHUNK = 64
+K1_BF16_MAX_SPLITS = 8
+K1_BF16_BLOCKS_PER_SM = 4
+K1_BF16_MIN_CHUNKS = 2
+K1_BF16_MAX_STAGES = 3
+# The instantiated tiles, (wgn, bn, round_taps, paired):
+# csrc/subm_conv_bf16.cu:launcher.
+K1_BF16_TILES = frozenset(
+    [(1, 32, True, False), (1, 32, False, False), (1, 64, True, False), (1, 64, False, True)]
+    + [(2, bn, r, True) for bn in (48, 64, 80, 96, 112) for r in (False, True)
+       if (bn, r) != (112, True)])
+K1_BF16_SHARED = 233472  # an SM's shared memory, 1 KB of it a block's
+
+
+@dataclass(frozen=True)
+class K1Bf16Schedule:
+    bn: int  # columns a warpgroup: the wgmma's N
+    wgn: int  # warpgroups side by side on the columns
+    paired: bool  # two accumulators in turn, a ring of stages
+    splits: int  # blocks (a cluster) a tile's reduction is split over
+    chunks_per_split: int
+    n_chunks: int
+    round_taps: bool
+
+    @property
+    def rows(self) -> int:
+        return 128 // self.wgn
+
+    @property
+    def cols(self) -> int:
+        return self.bn * self.wgn
+
+    @property
+    def regs(self) -> int:
+        return k1_bf16_regs(self.bn, self.round_taps, self.paired)
+
+    @property
+    def blocks(self) -> int:
+        """The blocks an SM a paired tile asks for (the launch bound)."""
+        return 2 if self.paired and self.regs <= 128 else 1
+
+    def _bytes(self, stages: int) -> int:
+        stage = self.cols * 128 + self.rows * 36 * 4
+        red = self.rows * self.cols * 4
+        return max(stages * stage + self.rows * 27 * 4, red) + self.rows * 4 + 1024
+
+    @property
+    def stages(self) -> int:
+        """The shared-memory stages: up to K1_BF16_MAX_STAGES where paired,
+        as many as let ``blocks`` blocks share an SM; else 1."""
+        if not self.paired:
+            return 1
+        s = K1_BF16_MAX_STAGES
+        while s > 1 and self.blocks * (self._bytes(s) + 1024) > K1_BF16_SHARED:
+            s -= 1
+        return s
+
+    @property
+    def shared_bytes(self) -> int:
+        """The dynamic shared memory a block takes."""
+        return self._bytes(self.stages)
+
+    def split_chunks(self, z: int) -> range:
+        """The chunks split ``z`` takes."""
+        lo = z * self.chunks_per_split
+        return range(lo, min(self.n_chunks, lo + self.chunks_per_split))
+
+
+def k1_bf16_regs(bn: int, round_taps: bool, paired: bool) -> int:
+    """The registers a thread of K1-bf16 needs, estimated: the k-step
+    accumulators (two where paired), the running sum and with
+    ``round_taps`` the tap's sum, bn / 2 each, and about 32 more."""
+    return ((2 if paired else 1) + (2 if round_taps else 1)) * bn // 2 + 32
+
+
+def _ceil8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+@functools.lru_cache(maxsize=4096)
+def k1_bf16_schedule(v: int, k: int, n: int, sms: int, round_taps: bool) -> K1Bf16Schedule:
+    """K1-bf16's tile and split for V rows, K (padded) input and N output
+    channels on a card of ``sms`` SMs (measured on the H100, PERF.md §6):
+    - Cout up to 32, or up to 64 with ``round_taps``: two 64-row tiles by
+      the Cout, unpaired, the fewest registers and the most blocks an SM;
+    - Cout up to 64 otherwise: the same tile, paired;
+    - wider: one 64-row tile by 2 bn columns, paired, bn the narrowest
+      instantiated width that covers the Cout within 255 registers, in as
+      few column tiles as that allows, so that a block gathers each
+      neighbour row once."""
+    if _ceil8(n) <= 64:
+        wgn, bn = 1, (32 if _ceil8(n) <= 32 else 64)
+        paired = bn == 64 and not round_taps
+    else:
+        wgn, paired = 2, True
+        widths = sorted(b for w, b, r, p in K1_BF16_TILES
+                        if w == 2 and r == round_taps and k1_bf16_regs(b, r, p) <= 255)
+        n_tiles = 1
+        while True:
+            fits = [b for b in widths if b >= _ceil8(-(-n // (2 * n_tiles)))]
+            if fits:
+                bn = fits[0]
+                break
+            n_tiles += 1
+    kf = 27 * k
+    n_chunks = -(-kf // K1_BF16_CHUNK)
+    tiles = -(-v // (128 // wgn)) * -(-n // (bn * wgn))
+    s = min(K1_BF16_MAX_SPLITS, K1_BF16_BLOCKS_PER_SM * sms // max(tiles, 1),
+            n_chunks // K1_BF16_MIN_CHUNKS)
+    if s <= 1:
+        return K1Bf16Schedule(bn, wgn, paired, 1, n_chunks, n_chunks, round_taps)
+    # splits of whole groups of taps: the chunks of lcm(chunk, K) columns
+    group = k // math.gcd(K1_BF16_CHUNK, k)
+    groups = -(-n_chunks // group)
+    per = group * -(-groups // s)
+    return K1Bf16Schedule(bn, wgn, paired, -(-n_chunks // per), per, n_chunks, round_taps)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _k1_bf16_lib():
+    """K1-bf16's library, its launcher's signature set at the first call."""
+    lib = cuda_build.load("subm_conv_bf16")
+    if not getattr(lib, "gapro_ready", False):
+        fn = lib.gapro_subm_conv_bf16_fwd
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.gapro_ready = True
+    return lib
+
+
 def _launch_k1_bf16(feats, nbr_idx, b, valid, tables, window):
     """out [V, N] = K1-bf16 over bf16(feats) [V, K] and b [27, N, K], fp32,
-    a view read through its strides and rounded to bf16 by the kernel's
-    prologue; each tap rounded to bf16 where ``window``."""
+    a view read through its strides; the kernel's prologue rounds both to
+    bf16 (the features padded to a multiple of 8 columns); each tap rounded
+    to bf16 where ``window``."""
     order, masks = tables.rows()
-    v, n, k_real = feats.shape[0], b.shape[1], b.shape[2]
-    a = _pad8(feats.to(torch.bfloat16), 1).contiguous()  # the bf16 table: one elementwise pass
-    k = a.shape[1]
-    lib = cuda_build.load("subm_conv_bf16")
-    lib.gapro_subm_conv_bf16_splits.argtypes = [ctypes.c_int] * 3
-    lib.gapro_subm_conv_bf16_splits.restype = ctypes.c_int
-    lib.gapro_subm_conv_bf16_b_elems.argtypes = [ctypes.c_int] * 2
-    lib.gapro_subm_conv_bf16_b_elems.restype = ctypes.c_longlong
-    fn = lib.gapro_subm_conv_bf16_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(a.device):
-        splits = lib.gapro_subm_conv_bf16_splits(v, k, n)
-        if splits < 1:
-            raise RuntimeError("subm_conv_bf16_cuda: the device query failed")
-        out = torch.empty((v, n), dtype=torch.float32, device=a.device)
-        # per-split partial sums of the deep levels (see csrc/subm_conv_bf16.cu)
-        partial = (torch.empty((splits, v, n), dtype=torch.float32, device=a.device)
-                   if splits > 1 else None)
-        bt = torch.empty(lib.gapro_subm_conv_bf16_b_elems(k, n), dtype=torch.bfloat16,
-                         device=a.device)
-        err = fn(
-            a.data_ptr(), nbr_idx.data_ptr(), b.data_ptr(), *b.stride(), k_real,
-            valid.data_ptr(), order.data_ptr(), masks.data_ptr(), out.data_ptr(),
-            0 if partial is None else partial.data_ptr(), bt.data_ptr(), v, k, n, splits,
-            int(window), torch.cuda.current_stream().cuda_stream)
+    v, k_real = feats.shape
+    n, k = b.shape[1], _ceil8(k_real)
+    dev = feats.device
+    sched = k1_bf16_schedule(v, k, n, _sm_count(dev.index), bool(window))
+    lib = _k1_bf16_lib()
+    a = torch.empty((v, k), dtype=torch.bfloat16, device=dev)  # the bf16 table
+    out = torch.empty((v, n), dtype=torch.float32, device=dev)
+    bt = torch.empty(sched.n_chunks * -(-n // sched.cols) * sched.cols * K1_BF16_CHUNK,
+                     dtype=torch.bfloat16, device=dev)
+    with _on_device(dev):
+        err = lib.gapro_subm_conv_bf16_fwd(
+            feats.data_ptr(), k_real, a.data_ptr(), nbr_idx.data_ptr(), b.data_ptr(),
+            *b.stride(), bt.data_ptr(), valid.data_ptr(), order.data_ptr(), masks.data_ptr(),
+            out.data_ptr(), v, k, n, sched.bn, sched.wgn, int(sched.paired), sched.splits,
+            sched.chunks_per_split, int(window), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "subm_conv_bf16_cuda")
     return out
+
+
+def _on_device(dev):
+    """A guard making ``dev`` the current device, or nothing where it is."""
+    return (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+            else torch.cuda.device(dev))
 
 
 def subm_conv_dw_cuda(feats, nbr_idx, dout, tables):

@@ -398,7 +398,8 @@ def test_dyco_cuda_fragment_mapping(cuda_device, m):
 @pytest.mark.gpu
 @pytest.mark.parametrize("window", [False, True])
 @pytest.mark.parametrize("lvl,cin,cout", [(0, 6, 32), (0, 24, 16), (0, 32, 32), (1, 64, 64),
-                                          (1, 96, 96), (1, 384, 192)])
+                                          (1, 96, 96), (1, 128, 128), (1, 160, 160),
+                                          (1, 384, 192)])
 def test_k1_bf16_on_a_batch2_plan(cuda_device, batch2_plan, lvl, cin, cout, window):
     """K1-bf16 on the level's own tables at the model's widths (the stem
     padded from 6 to 8 columns; at 24 a k-step holds the end of one tap and
@@ -433,6 +434,45 @@ def test_k1_bf16_on_a_batch2_plan(cuda_device, batch2_plan, lvl, cin, cout, wind
     assert (out[~valid] == 0).all()
     with pytest.raises(TypeError):
         conv.subm_conv_bf16_cuda(feats.bfloat16(), nbr, w, valid, lp.conv, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("cin,cout", [(32, 32), (96, 96), (128, 128), (160, 160), (224, 224),
+                                      (40, 24), (40, 96)])
+def test_k1_bf16_split_over_a_cluster(cuda_device, cin, cout, window):
+    """K1-bf16 on a grid of 1,024 rows, where the schedule splits each
+    tile's reduction over a cluster (the partials added through distributed
+    shared memory in split order), at each tile width, in both functions:
+    against its plain version as on the batch-2 plan, invalid rows exactly
+    0, two launches equal bit for bit. At 40 -> 24 and 40 -> 96 (K = 40, an
+    odd multiple of 8) a k-step spans the end of one tap and the start of
+    the next, in the unpaired and the paired form; at 224 with round_taps
+    the Cout takes two column tiles."""
+    grid = _grid(cuda_device)
+    nbr, valid = subm_neighbor_table(grid), grid.valid
+    sched = conv.k1_bf16_schedule(CAP, -(-cin // 8) * 8, cout,
+                                  torch.cuda.get_device_properties(0).multi_processor_count,
+                                  window)
+    assert sched.splits > 1
+    g = torch.Generator().manual_seed(cin + cout)
+    feats = (torch.randn(CAP, cin, generator=g).to(cuda_device) * valid[:, None]).contiguous()
+    bound = (3.0 / (27 * cin)) ** 0.5
+    w = ((torch.rand(27, cin, cout, generator=g) * 2 - 1) * bound).to(cuda_device)
+    tables = ConvTables(nbr, valid)
+    out = conv.subm_conv_bf16_cuda(feats, nbr, w, valid, tables, window)
+    again = conv.subm_conv_bf16_cuda(feats, nbr, w, valid, tables, window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    want = conv.subm_conv_bf16(feats, nbr, w, valid, window)
+    scale = max(1.0, float(want.abs().max()))
+    diff = (out - want).abs()
+    if window:
+        assert float(diff.max()) <= 2.0 ** -8 * scale
+        assert float((diff > 1e-4 * scale).float().mean()) <= 1e-2
+    else:
+        assert float(diff.max()) <= 1e-4 * scale
+    assert (out[~valid] == 0).all()
 
 
 @pytest.mark.gpu

@@ -1,0 +1,7 @@
+"""Milliseconds a step in make_prepare's prepare (voxelize, plan), to the device's sync."""
+
+from benchmark.lib import readers
+
+
+def read(run):
+    return readers.span_ms(run, "prepare")

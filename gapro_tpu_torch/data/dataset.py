@@ -34,6 +34,7 @@ from typing import Callable, Iterator, List, Tuple
 import numpy as np
 
 from ..models.prepare import PointBatch, points_to_batch_np
+from ..utils import profiling
 from .augment import transform_test, transform_train
 from .scannet_io import (load_pseudo_labels, load_scene, load_superpoints,
                          remap_semantic_for_training)
@@ -179,26 +180,48 @@ class LoaderBatch:
 
 
 def _prep_scene(dataset, training, vc, seed, epoch, i):
-    """Load and augment one scene from its own generator."""
-    scene = dataset.load(int(i))
-    rng = np.random.default_rng((seed + epoch) * 1_000_003 + int(i))
-    if training:
-        return transform_train(scene, vc.scale, vc.spatial_shape[1], vc.max_npoint, rng,
-                               min_npoint=vc.min_npoint)
-    return transform_test(scene, vc.scale)
+    """Load and augment one scene from its own generator (the span
+    ``loader.scene``)."""
+    with profiling.span("loader.scene"):
+        scene = dataset.load(int(i))
+        rng = np.random.default_rng((seed + epoch) * 1_000_003 + int(i))
+        if training:
+            return transform_train(scene, vc.scale, vc.spatial_shape[1], vc.max_npoint, rng,
+                                   min_npoint=vc.min_npoint)
+        return transform_test(scene, vc.scale)
 
 
-# the worker's arguments, set once in each forked worker by its initializer
+# the worker's arguments, set once in each worker by its initializer
 _WORKER_CTX: dict = {}
 
 
-def _worker_init(dataset, training, vc, seed, epoch):
-    _WORKER_CTX.update(dataset=dataset, training=training, vc=vc, seed=seed, epoch=epoch)
+def _worker_init(dataset, training, vc, seed, epoch, traced):
+    _WORKER_CTX.update(dataset=dataset, training=training, vc=vc, seed=seed, epoch=epoch,
+                       traced=traced)
+    profiling.enable_in_worker(traced)
 
 
 def _worker_prep(i):
+    """Scene ``i``, and with tracing on the worker's record since its last
+    scene (its spans name no unit: ``_collect`` gives them the step's)."""
     c = _WORKER_CTX
-    return _prep_scene(c["dataset"], c["training"], c["vc"], c["seed"], c["epoch"], i)
+    scene = _prep_scene(c["dataset"], c["training"], c["vc"], c["seed"], c["epoch"], i)
+    return (scene, profiling.drain()) if c["traced"] else scene
+
+
+def _collect(fut, traced: bool):
+    """A worker's scene. With tracing on, counted (``loader.asked``, and
+    ``loader.ready`` where it was done before it was asked for), the wait
+    for it timed (``loader.wait``), and the worker's record merged under
+    the current unit, the step that takes the scene."""
+    if not traced:
+        return fut.result()
+    profiling.count("loader.asked")
+    profiling.count("loader.ready", int(fut.done()))
+    with profiling.span("loader.wait"):
+        scene, record = fut.result()
+    profiling.merge(record)
+    return scene
 
 
 def build_dataloader(dataset, batch_size=4, training=True, seed=0, drop_last=True, epoch=0,
@@ -209,7 +232,9 @@ def build_dataloader(dataset, batch_size=4, training=True, seed=0, drop_last=Tru
     ``num_workers > 0`` loads and augments in that many forked processes,
     ``_PREFETCH_BATCHES`` batches ahead and in order, so that the host's
     augmentation overlaps the card's step; the batches equal the serial
-    path's. A scene the crop leaves too small is skipped.
+    path's. A scene the crop leaves too small is skipped. Tracing
+    (``utils/profiling.py``) is on in the workers if it is on here when
+    the loader starts.
     """
     rng = np.random.default_rng(seed + epoch)
     order = np.arange(len(dataset))
@@ -226,12 +251,14 @@ def build_dataloader(dataset, batch_size=4, training=True, seed=0, drop_last=Tru
             batch_scenes.append(t)
             ids.append(t.get("scan_id", ""))
             if len(batch_scenes) == batch_size:
-                pb = points_to_batch_np(batch_scenes, voxel_scale=vc.scale)
+                with profiling.span("loader.collate"):
+                    pb = points_to_batch_np(batch_scenes, voxel_scale=vc.scale)
                 yield LoaderBatch(points=pb, scan_ids=ids, scenes=batch_scenes,
                                   batch_size=batch_size)
                 batch_scenes, ids = [], []
         if batch_scenes and not drop_last:
-            pb = points_to_batch_np(batch_scenes, voxel_scale=vc.scale)
+            with profiling.span("loader.collate"):
+                pb = points_to_batch_np(batch_scenes, voxel_scale=vc.scale)
             yield LoaderBatch(points=pb, scan_ids=ids, scenes=batch_scenes,
                               batch_size=len(batch_scenes))
 
@@ -244,9 +271,10 @@ def build_dataloader(dataset, batch_size=4, training=True, seed=0, drop_last=Tru
     from concurrent.futures import ProcessPoolExecutor
 
     window = max(num_workers, batch_size * _PREFETCH_BATCHES)
+    traced = profiling.enabled()
     with ProcessPoolExecutor(max_workers=num_workers, mp_context=mp.get_context("fork"),
                              initializer=_worker_init,
-                             initargs=(dataset, training, vc, seed, epoch)) as pool:
+                             initargs=(dataset, training, vc, seed, epoch, traced)) as pool:
         def results():
             pending: deque = deque()
             it = iter(order)
@@ -259,7 +287,7 @@ def build_dataloader(dataset, batch_size=4, training=True, seed=0, drop_last=Tru
                 nxt = next(it, None)
                 if nxt is not None:
                     pending.append(pool.submit(_worker_prep, int(nxt)))
-                yield fut.result()
+                yield _collect(fut, traced)
 
         yield from emit(results())
 
@@ -287,7 +315,7 @@ def build_rank_loader(dataset, world_size: int, rank: int, exchange: Callable[[i
 
     ``num_workers > 0`` loads in that many spawned processes, this rank's
     scenes up to ``max(num_workers, _PREFETCH_BATCHES)`` batches ahead
-    (where no scene is skipped)."""
+    (where no scene is skipped), traced as ``build_dataloader``'s."""
     import contextlib
 
     rng = np.random.default_rng(seed + epoch)
@@ -296,6 +324,7 @@ def build_rank_loader(dataset, world_size: int, rank: int, exchange: Callable[[i
     vc = dataset.voxel_cfg
     window = max(num_workers, _PREFETCH_BATCHES)
     ahead: dict = {}  # position in ``order`` -> the future of its scene
+    traced = profiling.enabled()
     with contextlib.ExitStack() as stack:
         pool = None
         if num_workers > 0:
@@ -304,12 +333,12 @@ def build_rank_loader(dataset, world_size: int, rank: int, exchange: Callable[[i
 
             pool = stack.enter_context(ProcessPoolExecutor(
                 max_workers=num_workers, mp_context=mp.get_context("spawn"),
-                initializer=_worker_init, initargs=(dataset, True, vc, seed, epoch)))
+                initializer=_worker_init, initargs=(dataset, True, vc, seed, epoch, traced)))
 
         def load(pos):
             fut = ahead.pop(pos, None)
             if fut is not None:
-                return fut.result()
+                return _collect(fut, traced)
             return _prep_scene(dataset, True, vc, seed, epoch, order[pos])
 
         def prefetch(cursor):

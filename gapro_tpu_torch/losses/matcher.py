@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..models.common import jmax0
+from ..utils import profiling
 
 _INVALID_COST = 1e5
 
@@ -104,5 +105,6 @@ def hungarian_match(cls_logits, mask_logits, conf_logits, box_preds, gt_cls, gt_
     on the device of the inputs. The costs cross to the host once."""
     costs = match_costs(cls_logits, mask_logits, conf_logits, box_preds, gt_cls, gt_masks,
                         gt_boxes, gt_valid, sp_valid, query_valid)
-    assign = torch.as_tensor(_lsap_host(costs.cpu().numpy()), device=costs.device)
+    host = profiling.to_host(costs, "matcher.costs").numpy()
+    assign = torch.as_tensor(_lsap_host(host), device=costs.device)
     return torch.where(gt_valid, assign, -1)

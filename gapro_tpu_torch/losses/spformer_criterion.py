@@ -31,6 +31,7 @@ from typing import Dict
 import torch
 
 from ..core.batching import gather_dense
+from ..utils import profiling
 from .criterion import Targets, _bce_with_logits
 from .matcher import _INVALID_COST, _lsap_host, bce_cost, dice_cost
 
@@ -76,7 +77,7 @@ def spformer_match(cls_logits, mask_logits, gt_cls, gt_masks, gt_valid, sp_valid
     The costs of all heads cross to the host in one copy."""
     costs = spformer_match_costs(cls_logits, mask_logits, gt_cls, gt_masks, gt_valid, sp_valid,
                                  cfg)
-    host = costs.cpu().numpy()
+    host = profiling.to_host(costs, "spformer.costs").numpy()
     assign = _lsap_host(host.reshape((-1,) + host.shape[-2:])).reshape(host.shape[:-2] + (-1,))
     return torch.where(gt_valid, torch.as_tensor(assign, device=costs.device), -1)
 

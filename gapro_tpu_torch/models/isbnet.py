@@ -34,6 +34,7 @@ from ..core.segment import segment_max, segment_mean
 from ..device import resolve_device
 from ..sparse.plan import UNetPlan
 from ..sparse.unet import SparseUNetBackbone
+from ..utils import profiling
 from .aggregator import LocalAggregator
 from .common import MLP, ConvBlock1d, GenericMLP, seeded_init_
 from .dyco import dyco_mlp
@@ -204,11 +205,14 @@ class ISBNet(nn.Module):
         return cls_logits, conf_logits, box_offsets, self.controller(x)
 
     def run_queries(self, agg2, d_sp_mask_feats, d_sp_coords, d_sp_boxes, sp_dense_valid):
-        cls_logits, conf_logits, box_offsets, controllers = self.query_heads(agg2.feats, agg2.valid)
-        query_box_preds = box_offsets + agg2.locs.repeat(1, 1, 2)
-        mask_logits = self.dynamic_mask_head(controllers, agg2.locs, query_box_preds,
-                                             d_sp_mask_feats, d_sp_coords, d_sp_boxes,
-                                             sp_dense_valid)
+        with profiling.span("model.heads"):
+            cls_logits, conf_logits, box_offsets, controllers = self.query_heads(agg2.feats,
+                                                                                 agg2.valid)
+            query_box_preds = box_offsets + agg2.locs.repeat(1, 1, 2)
+        with profiling.span("model.mask_head"):
+            mask_logits = self.dynamic_mask_head(controllers, agg2.locs, query_box_preds,
+                                                 d_sp_mask_feats, d_sp_coords, d_sp_boxes,
+                                                 sp_dense_valid)
         return cls_logits, conf_logits, query_box_preds, mask_logits
 
     # ------------------------------------------------------------------ #
@@ -230,73 +234,82 @@ class ISBNet(nn.Module):
         S = batch.n_spp
 
         if feats is None:
-            feats = self._gated("backbone", self.backbone_input(batch), batch.plan)  # [V, C]
-        sem_scores, corners_offset, box_conf = self.pointwise_head(feats, batch.valid)
-        box_preds = corners_offset + batch.coords_float.repeat(1, 2)
-        out: Dict[str, object] = dict(semantic_scores=sem_scores, corners_offset=corners_offset,
-                                      box_conf=box_conf, box_preds=box_preds, voxel_feats=feats)
-        if cfg.semantic_only:
-            return out, None
+            with profiling.span("model.backbone"):
+                feats = self._gated("backbone", self.backbone_input(batch), batch.plan)  # [V, C]
+        with profiling.span("model.heads"):
+            sem_scores, corners_offset, box_conf = self.pointwise_head(feats, batch.valid)
+            box_preds = corners_offset + batch.coords_float.repeat(1, 2)
+            out: Dict[str, object] = dict(
+                semantic_scores=sem_scores, corners_offset=corners_offset, box_conf=box_conf,
+                box_preds=box_preds, voxel_feats=feats)
+            if cfg.semantic_only:
+                return out, None
 
-        # background filter on superpoint-pooled semantics
-        sem_sm = torch.softmax(sem_scores, 1)
-        spp_sem = segment_mean(sem_sm, batch.spp, S)
-        spp_fg = (spp_sem[:, :-1] >= cfg.filter_bg_thresh).any(-1)
-        # compact ids past the spp capacity read the last row, as the JAX
-        # package's clamped gathers do
-        fg_mask = spp_fg[batch.spp.clamp(0, S - 1).long()] & batch.valid
+            # background filter on superpoint-pooled semantics
+            sem_sm = torch.softmax(sem_scores, 1)
+            spp_sem = segment_mean(sem_sm, batch.spp, S)
+            spp_fg = (spp_sem[:, :-1] >= cfg.filter_bg_thresh).any(-1)
+            # compact ids past the spp capacity read the last row, as the JAX
+            # package's clamped gathers do
+            fg_mask = spp_fg[batch.spp.clamp(0, S - 1).long()] & batch.valid
 
-        # superpoint pooling (dyco domain)
-        sp_coords = segment_mean(batch.coords_float, batch.spp, S)
-        sp_feats = segment_mean(feats, batch.spp, S)
-        sp_boxes = segment_mean(box_preds, batch.spp, S)
-        sp_batch = segment_max(torch.where(batch.valid, batch.batch_idx, -1), batch.spp, S)
-        sp_valid = sp_batch >= 0
+            # superpoint pooling (dyco domain)
+            sp_coords = segment_mean(batch.coords_float, batch.spp, S)
+            sp_feats = segment_mean(feats, batch.spp, S)
+            sp_boxes = segment_mean(box_preds, batch.spp, S)
+            sp_batch = segment_max(torch.where(batch.valid, batch.batch_idx, -1), batch.spp, S)
+            sp_valid = sp_batch >= 0
 
-        sp_mask_feats = self.run_mask_tower(sp_feats, sp_valid)
-        mu_pred = self.mu_linear(sp_feats, sp_valid)[..., 0]
-        logvar_pred = self.logvar_linear(sp_feats, sp_valid)[..., 0]
+            sp_mask_feats = self.run_mask_tower(sp_feats, sp_valid)
+            mu_pred = self.mu_linear(sp_feats, sp_valid)[..., 0]
+            logvar_pred = self.logvar_linear(sp_feats, sp_valid)[..., 0]
 
-        _, sp_dense_idx, sp_dense_valid = flat_to_dense_index(
-            sp_batch.clamp(min=0), sp_valid, B, cfg.spp_cap)
-        d_sp_coords = gather_dense(sp_coords, sp_dense_idx)
-        d_sp_boxes = gather_dense(sp_boxes, sp_dense_idx)
-        d_sp_mask_feats = gather_dense(sp_mask_feats, sp_dense_idx)
+            _, sp_dense_idx, sp_dense_valid = flat_to_dense_index(
+                sp_batch.clamp(min=0), sp_valid, B, cfg.spp_cap)
+            d_sp_coords = gather_dense(sp_coords, sp_dense_idx)
+            d_sp_boxes = gather_dense(sp_boxes, sp_dense_idx)
+            d_sp_mask_feats = gather_dense(sp_mask_feats, sp_dense_idx)
 
-        # aggregator over foreground voxels (dense views)
-        nf = int(V * cfg.fg_cap_ratio)
-        _, fg_dense_idx, fg_dense_valid = flat_to_dense_index(batch.batch_idx, fg_mask, B, nf)
-        d_locs = gather_dense(batch.coords_float, fg_dense_idx)
-        d_feats = gather_dense(feats, fg_dense_idx)
-        d_boxes = gather_dense(box_preds, fg_dense_idx)
-        agg1 = self.point_aggregator1(d_locs, d_feats, d_boxes, fg_dense_valid)
-        mid = dict(agg1=agg1, fg_dense_idx=fg_dense_idx, d_sp_coords=d_sp_coords,
-                   d_sp_boxes=d_sp_boxes, d_sp_mask_feats=d_sp_mask_feats)
+            # aggregator over foreground voxels (dense views)
+            nf = int(V * cfg.fg_cap_ratio)
+            _, fg_dense_idx, fg_dense_valid = flat_to_dense_index(batch.batch_idx, fg_mask, B, nf)
+            d_locs = gather_dense(batch.coords_float, fg_dense_idx)
+            d_feats = gather_dense(feats, fg_dense_idx)
+            d_boxes = gather_dense(box_preds, fg_dense_idx)
+        with profiling.span("model.aggregator"):
+            agg1 = self.point_aggregator1(d_locs, d_feats, d_boxes, fg_dense_valid)
+        with profiling.span("model.heads"):
+            mid = dict(agg1=agg1, fg_dense_idx=fg_dense_idx, d_sp_coords=d_sp_coords,
+                       d_sp_boxes=d_sp_boxes, d_sp_mask_feats=d_sp_mask_feats)
 
-        # overflow counters ("no silent caps")
-        out.update(
-            ovf_fg_voxels=int(fg_mask.sum()) - int(fg_dense_valid.sum()),
-            ovf_spp_slots=int(sp_valid.sum()) - int(sp_dense_valid.sum()),
-            ovf_plan_voxels=sum(lvl.dropped_next for lvl in batch.plan.levels),
-            ovf_window_escapees=batch.plan.ovf_window_escapees,
-            mu_pred=mu_pred, logvar_pred=logvar_pred,
-            sp_dense_idx=sp_dense_idx, sp_dense_valid=sp_dense_valid, sp_valid=sp_valid,
-            sp_coords=sp_coords, sp_coords_dense=d_sp_coords, sp_batch=sp_batch,
-            fg_mask=fg_mask, agg1_inds=agg1.inds, agg1_valid=agg1.valid,
-        )
+            # overflow counters ("no silent caps")
+            count = lambda m: int(profiling.to_host(m.sum(), "isbnet.ovf"))
+            out.update(
+                ovf_fg_voxels=count(fg_mask) - count(fg_dense_valid),
+                ovf_spp_slots=count(sp_valid) - count(sp_dense_valid),
+                ovf_plan_voxels=sum(lvl.dropped_next for lvl in batch.plan.levels),
+                ovf_window_escapees=batch.plan.ovf_window_escapees,
+                mu_pred=mu_pred, logvar_pred=logvar_pred,
+                sp_dense_idx=sp_dense_idx, sp_dense_valid=sp_dense_valid, sp_valid=sp_valid,
+                sp_coords=sp_coords, sp_coords_dense=d_sp_coords, sp_batch=sp_batch,
+                fg_mask=fg_mask, agg1_inds=agg1.inds, agg1_valid=agg1.valid,
+            )
         return out, mid
 
     def forward(self, batch: VoxelBatch) -> Dict[str, object]:
         """One-shot forward: the stage-2 aggregator over the stage-1 samples
         (``sampled_before``), as in training. It records a graph only in
-        training mode; in eval mode it runs under ``no_grad``."""
+        training mode; in eval mode it runs under ``no_grad``. Spans
+        ``model.backbone``, ``model.aggregator``, ``model.mask_head``, and
+        ``model.heads`` for the rest."""
         with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
             out, mid = self.trunk(batch)
             if self.cfg.semantic_only:
                 return out
             agg1 = mid["agg1"]
-            agg2 = self.point_aggregator2(agg1.locs, agg1.feats, agg1.boxes, agg1.valid,
-                                          sampled_before=True)
+            with profiling.span("model.aggregator"):
+                agg2 = self.point_aggregator2(agg1.locs, agg1.feats, agg1.boxes, agg1.valid,
+                                              sampled_before=True)
             cls_logits, conf_logits, query_box_preds, mask_logits = self.run_queries(
                 agg2, mid["d_sp_mask_feats"], mid["d_sp_coords"], mid["d_sp_boxes"],
                 out["sp_dense_valid"])
@@ -316,11 +329,12 @@ class ISBNet(nn.Module):
         ``x4_split`` (S3DIS rooms): the batch's items are the interleaved
         pieces of one room; the backbone runs them as batch items (the plan
         never crosses items), and everything after it sees one merged scene
-        (``batch_idx`` 0, batch size 1)."""
+        (``batch_idx`` 0, batch size 1). Spans as ``forward``'s."""
         if self.cfg.semantic_only:
             raise ValueError("a semantic_only model has no instance path: call forward")
         if x4_split:
-            feats = self.backbone(self.backbone_input(batch), batch.plan)
+            with profiling.span("model.backbone"):
+                feats = self.backbone(self.backbone_input(batch), batch.plan)
             batch = replace(batch, batch_idx=torch.zeros_like(batch.batch_idx), batch_size=1)
             out, mid = self.trunk(batch, feats=feats)
         else:
@@ -330,21 +344,23 @@ class ISBNet(nn.Module):
         S = self.cfg.spp_cap
         dev = agg1.valid.device
 
-        # dense superpoint slot of each stage-1 candidate
-        flat_vox = torch.gather(mid["fg_dense_idx"], 1, agg1.inds.long())
-        q1_spp = batch.spp[flat_vox.clamp(min=0).long()]
-        slot_of = torch.full((batch.n_spp,), -1, dtype=torch.int32, device=dev)
-        dv = out["sp_dense_valid"]
-        slots = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
-        slot_of[out["sp_dense_idx"][dv].long()] = slots[dv]
-        q1_slot = slot_of[q1_spp.clamp(0, batch.n_spp - 1).long()]
-        q1_slot_safe = q1_slot.clamp(min=0).long()
+        with profiling.span("model.heads"):
+            # dense superpoint slot of each stage-1 candidate
+            flat_vox = torch.gather(mid["fg_dense_idx"], 1, agg1.inds.long())
+            q1_spp = batch.spp[flat_vox.clamp(min=0).long()]
+            slot_of = torch.full((batch.n_spp,), -1, dtype=torch.int32, device=dev)
+            dv = out["sp_dense_valid"]
+            slots = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+            slot_of[out["sp_dense_idx"][dv].long()] = slots[dv]
+            q1_slot = slot_of[q1_spp.clamp(0, batch.n_spp - 1).long()]
+            q1_slot_safe = q1_slot.clamp(min=0).long()
 
         valid1 = agg1.valid
         cls_l, conf_l, mask_l, box_l, valid_l = [], [], [], [], []
         for r in n_sample_arr:
-            agg2 = self.point_aggregator2(agg1.locs, agg1.feats, agg1.boxes, valid1,
-                                          sampled_before=False, n_sample=r)
+            with profiling.span("model.aggregator"):
+                agg2 = self.point_aggregator2(agg1.locs, agg1.feats, agg1.boxes, valid1,
+                                              sampled_before=False, n_sample=r)
             cls_r, conf_r, box_r, mask_r = self.run_queries(
                 agg2, mid["d_sp_mask_feats"], mid["d_sp_coords"], mid["d_sp_boxes"],
                 out["sp_dense_valid"])
@@ -353,11 +369,13 @@ class ISBNet(nn.Module):
             mask_l.append(mask_r)
             box_l.append(box_r)
             valid_l.append(agg2.valid)
-            covered = ((mask_r > 0) & agg2.valid[..., None]).any(1)  # [B, S]
-            hit = torch.gather(covered, 1, q1_slot_safe) & (q1_slot >= 0)
-            valid1 = valid1 & ~hit
+            with profiling.span("model.heads"):
+                covered = ((mask_r > 0) & agg2.valid[..., None]).any(1)  # [B, S]
+                hit = torch.gather(covered, 1, q1_slot_safe) & (q1_slot >= 0)
+                valid1 = valid1 & ~hit
 
-        out.update(cls_logits=torch.cat(cls_l, 1), conf_logits=torch.cat(conf_l, 1),
-                   mask_logits=torch.cat(mask_l, 1), query_box_preds=torch.cat(box_l, 1),
-                   query_valid=torch.cat(valid_l, 1))
+        with profiling.span("model.heads"):
+            out.update(cls_logits=torch.cat(cls_l, 1), conf_logits=torch.cat(conf_l, 1),
+                       mask_logits=torch.cat(mask_l, 1), query_box_preds=torch.cat(box_l, 1),
+                       query_valid=torch.cat(valid_l, 1))
         return out

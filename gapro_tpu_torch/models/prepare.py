@@ -21,6 +21,7 @@ from ..device import resolve_device
 from ..ops.voxelize import voxel_feats_mean, voxel_gather_first, voxelize
 from ..sparse.plan import build_unet_plan
 from ..sparse.tensor import SparseGrid
+from ..utils import profiling
 from .isbnet import VoxelBatch
 
 # generous static bounds: z < 1024, y/x < 16384
@@ -111,9 +112,14 @@ class PreparedBatch(NamedTuple):
 
 
 def upload_point_batch(pb: PointBatch, device=None) -> PointBatch:
-    """numpy PointBatch -> tensors on ``device`` (``cuda`` unless named)."""
+    """numpy PointBatch -> tensors on ``device`` (``cuda`` unless named);
+    the span ``prepare.upload``, its bytes under ``h2d_bytes``."""
     dev = resolve_device(device)
-    return PointBatch(*(torch.as_tensor(np.asarray(a)).to(dev) for a in pb))
+    with profiling.span("prepare.upload"):
+        host = [torch.as_tensor(np.asarray(a)) for a in pb]
+        if dev.type != "cpu":
+            profiling.count("h2d_bytes", sum(t.numel() * t.element_size() for t in host))
+        return PointBatch(*(t.to(dev) for t in host))
 
 
 # One [N, 17] float32 buffer carries a whole PointBatch exactly (integers
@@ -152,28 +158,32 @@ def prepare_voxel_batch(pb: PointBatch, voxel_cap: int, batch_size: int,
                         num_levels: int = 7, spp_cap: int = 8192,
                         shrink=0.5) -> PreparedBatch:
     """Voxelize a device PointBatch and build its U-Net plan; runs where the
-    tensors of ``pb`` lie (see ``upload_point_batch``)."""
-    maps = voxelize(pb.coords, EXTENTS, voxel_cap, valid=pb.valid)
-    grid = SparseGrid(coords=maps.voxel_coords, valid=maps.valid_voxel,
-                      num_voxels=maps.num_voxels, spatial_shape=EXTENTS,
-                      batch_size=batch_size)
-    plan = build_unet_plan(grid, num_levels, shrink)
-
-    rgb = voxel_feats_mean(pb.feats, maps.point2voxel, voxel_cap)
-    coords_float = voxel_feats_mean(pb.coords_float, maps.point2voxel, voxel_cap)
-    label = lambda v: torch.where(maps.valid_voxel, voxel_gather_first(v, maps), -100)
-    _, spp_compact, _ = compact_unique(voxel_gather_first(pb.spp, maps), spp_cap,
-                                       valid=maps.valid_voxel)
+    tensors of ``pb`` lie (see ``upload_point_batch``). Spans
+    ``prepare.voxelize`` (the voxels and their features and labels) and
+    ``prepare.plan``."""
+    with profiling.span("prepare.voxelize"):
+        maps = voxelize(pb.coords, EXTENTS, voxel_cap, valid=pb.valid)
+        rgb = voxel_feats_mean(pb.feats, maps.point2voxel, voxel_cap)
+        coords_float = voxel_feats_mean(pb.coords_float, maps.point2voxel, voxel_cap)
+        label = lambda v: torch.where(maps.valid_voxel, voxel_gather_first(v, maps), -100)
+        _, spp_compact, _ = compact_unique(voxel_gather_first(pb.spp, maps), spp_cap,
+                                           valid=maps.valid_voxel)
+        labels = dict(voxel_semantic=label(pb.semantic), voxel_instance=label(pb.instance),
+                      voxel_prob=voxel_gather_first(pb.prob, maps),
+                      voxel_mu=voxel_gather_first(pb.mu, maps),
+                      voxel_var=voxel_gather_first(pb.var, maps))
+        batch_idx = maps.voxel_coords[:, 0].clamp(min=0)
+        vox_npoints = segment_count(maps.point2voxel, voxel_cap)
+    with profiling.span("prepare.plan"):
+        grid = SparseGrid(coords=maps.voxel_coords, valid=maps.valid_voxel,
+                          num_voxels=maps.num_voxels, spatial_shape=EXTENTS,
+                          batch_size=batch_size)
+        plan = build_unet_plan(grid, num_levels, shrink)
     batch = VoxelBatch(
-        feats=rgb, coords_float=coords_float,
-        batch_idx=maps.voxel_coords[:, 0].clamp(min=0), valid=maps.valid_voxel,
+        feats=rgb, coords_float=coords_float, batch_idx=batch_idx, valid=maps.valid_voxel,
         spp=spp_compact, plan=plan, batch_size=batch_size, n_spp=spp_cap,
-        vox_npoints=segment_count(maps.point2voxel, voxel_cap))
-    return PreparedBatch(
-        batch=batch, point2voxel=maps.point2voxel,
-        voxel_semantic=label(pb.semantic), voxel_instance=label(pb.instance),
-        voxel_prob=voxel_gather_first(pb.prob, maps), voxel_mu=voxel_gather_first(pb.mu, maps),
-        voxel_var=voxel_gather_first(pb.var, maps), voxel_rgb=rgb)
+        vox_npoints=vox_npoints)
+    return PreparedBatch(batch=batch, point2voxel=maps.point2voxel, voxel_rgb=rgb, **labels)
 
 
 def packed_prepare(num_levels: int, spp_cap: int, shrink) -> Callable:

@@ -43,6 +43,7 @@ from ..core.batching import flat_to_dense_index, gather_dense
 from ..core.segment import segment_max, segment_weighted_mean
 from ..device import resolve_device
 from ..sparse.unet import SparseUNetBackbone
+from ..utils import profiling
 from .common import MLP, seeded_init_
 from .isbnet import VoxelBatch
 
@@ -244,37 +245,44 @@ class SPFormer(nn.Module):
     def forward(self, batch: VoxelBatch) -> Dict[str, object]:
         """Voxel batch -> every decoder head's outputs, the superpoint heads,
         the dense superpoint layout and the ``ovf_*`` counters. It records a
-        graph only in training mode."""
+        graph only in training mode. Spans ``model.backbone``,
+        ``model.decoder``, and ``model.heads`` for the rest."""
         with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
             return self._forward(batch)
 
     def _forward(self, batch: VoxelBatch) -> Dict[str, object]:
         c = self.cfg
         B, S = batch.batch_size, batch.n_spp
-        in_feats = batch.feats
-        if c.with_coords:
-            in_feats = torch.cat([in_feats, batch.coords_float], 1)
-        feats = self.backbone(in_feats, batch.plan)  # [V, media]
-        if self._backbone_frozen():
-            feats = feats.detach()
+        with profiling.span("model.backbone"):
+            in_feats = batch.feats
+            if c.with_coords:
+                in_feats = torch.cat([in_feats, batch.coords_float], 1)
+            feats = self.backbone(in_feats, batch.plan)  # [V, media]
+            if self._backbone_frozen():
+                feats = feats.detach()
 
-        w = batch.vox_npoints
-        if w is None:
-            w = torch.ones(feats.shape[:1], dtype=torch.float32, device=feats.device)
-        sp_feats = self._pool(feats, batch, w)
-        sp_batch = segment_max(torch.where(batch.valid, batch.batch_idx, -1), batch.spp, S)
-        sp_valid = sp_batch >= 0
+        with profiling.span("model.heads"):
+            w = batch.vox_npoints
+            if w is None:
+                w = torch.ones(feats.shape[:1], dtype=torch.float32, device=feats.device)
+            sp_feats = self._pool(feats, batch, w)
+            sp_batch = segment_max(torch.where(batch.valid, batch.batch_idx, -1), batch.spp, S)
+            sp_valid = sp_batch >= 0
 
-        mu_pred = self.mu_linear(sp_feats, sp_valid)[..., 0]
-        logvar_pred = self.logvar_linear(sp_feats, sp_valid)[..., 0]
+            mu_pred = self.mu_linear(sp_feats, sp_valid)[..., 0]
+            logvar_pred = self.logvar_linear(sp_feats, sp_valid)[..., 0]
 
-        _, sp_dense_idx, sp_dense_valid = flat_to_dense_index(
-            sp_batch.clamp(min=0), sp_valid, B, c.spp_cap)
-        d_sp_feats = gather_dense(sp_feats, sp_dense_idx)
-        d_sp_coords = gather_dense(self._pool(batch.coords_float, batch, w), sp_dense_idx)
-        dec = self.decoder(d_sp_feats, sp_dense_valid)
+            _, sp_dense_idx, sp_dense_valid = flat_to_dense_index(
+                sp_batch.clamp(min=0), sp_valid, B, c.spp_cap)
+            d_sp_feats = gather_dense(sp_feats, sp_dense_idx)
+            d_sp_coords = gather_dense(self._pool(batch.coords_float, batch, w), sp_dense_idx)
+        with profiling.span("model.decoder"):
+            dec = self.decoder(d_sp_feats, sp_dense_valid)
+        with profiling.span("model.heads"):
+            count = lambda m: int(profiling.to_host(m.sum(), "spformer.ovf"))
+            ovf_spp_slots = count(sp_valid) - count(sp_dense_valid)
         return dict(
-            ovf_spp_slots=int(sp_valid.sum()) - int(sp_dense_valid.sum()),
+            ovf_spp_slots=ovf_spp_slots,
             ovf_plan_voxels=sum(lvl.dropped_next for lvl in batch.plan.levels),
             ovf_window_escapees=batch.plan.ovf_window_escapees,
             labels=dec["labels"], scores=dec["scores"], masks=dec["masks"],

@@ -15,6 +15,7 @@ import torch
 
 from ..core import segment
 from ..core.packing import KEY_MAX, pack_coords
+from ..utils import profiling
 
 
 class VoxelMaps(NamedTuple):
@@ -41,7 +42,7 @@ def voxelize(coords: torch.Tensor, extents, num_voxels: int,
     is_new[1:] = skey[1:] != skey[:-1]
     is_new &= s_valid
     ranks = torch.cumsum(is_new.int(), 0) - 1
-    nvox = int(is_new.sum())
+    nvox = int(profiling.to_host(is_new.sum(), "voxelize.count"))
     ranks = torch.where(s_valid & (ranks < num_voxels), ranks, -1).int()
 
     point2voxel = torch.empty(n, dtype=torch.int32, device=dev)

@@ -196,7 +196,10 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
     ``make_dp_train_step`` in a group); ``on_step(losses)`` gets each
     step's losses as floats. Returns the model, the train state, the best
     validation metric, the per-epoch records and each step's seconds on the
-    host clock (from the loader's batch to the losses read as floats)."""
+    host clock (from the loader's batch to the losses read as floats).
+    ``profile`` N traces the first epoch's first N steps with the port's
+    tracing on (``utils/profiling.py``) and logs what it recorded a step
+    (``_finish_profile``)."""
     log = logging.getLogger("train")
     dev = group.device if group is not None else resolve_device(device)
     lead = group is None or group.rank == 0  # validates, logs and writes the checkpoints
@@ -273,6 +276,8 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
             n_iter, meters = 0, {}
             prof = None
             if profile and lead and epoch == start_epoch:
+                # the port's spans and counters, the loader's workers' too
+                profiling.enable(True)
                 prof = prof_stack.enter_context(profiling.trace(osp.join(work_dir, "trace"),
                                                                 cuda=dev.type == "cuda"))
             if group is not None:
@@ -283,7 +288,7 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
             else:
                 loader = build_dataloader(dataset, batch_size, training=True, seed=seed,
                                           epoch=epoch, num_workers=num_workers)
-            for lb in loader:
+            for lb in profiling.units(loader, start=state.step):
                 t_step = time.perf_counter()
                 mark("loaded")
                 if group is not None:
@@ -291,12 +296,15 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
                     scene, n_max, weight = lb
                     buf = pack_point_batch_np(points_to_batch_np(
                         [scene], voxel_scale=dataset.voxel_cfg.scale, n_cap=next_bucket(n_max)))
-                    state, losses = step_fn(state, torch.from_numpy(buf).to(dev), lr, weight)
+                    with profiling.span("prepare.upload"):
+                        profiling.count("h2d_bytes", buf.nbytes)
+                        shard = torch.from_numpy(buf).to(dev)
+                    state, losses = step_fn(state, shard, lr, weight)
                 else:
                     prepared = prepare(lb.points, lb.batch_size)
                     mark("prepare")
                     state, losses = step_fn(state, prepared, lr)
-                vals = {k: float(v) for k, v in losses.items()}
+                vals = {k: float(profiling.to_host(v, "train.losses")) for k, v in losses.items()}
                 step_s.append(time.perf_counter() - t_step)
                 for k, v in vals.items():
                     meters[k] = meters.get(k, 0.0) + v
@@ -304,9 +312,9 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
                 if on_step is not None:
                     on_step(vals)
                 if prof is not None and n_iter == profile:
-                    prof = _finish_profile(prof_stack, dev, log)
+                    prof = _finish_profile(prof_stack, prof, dev, log, n_iter)
             if prof is not None:  # the epoch had fewer than ``profile`` steps
-                prof = _finish_profile(prof_stack, dev, log)
+                prof = _finish_profile(prof_stack, prof, dev, log, n_iter)
             dt = time.time() - t0
             means = {k: v / max(n_iter, 1) for k, v in meters.items()}
             log.info("epoch %d/%d loss %.4f lr %.2e (%.1fs, %d iters) | %s", epoch, epochs,
@@ -338,16 +346,47 @@ def train(cfg, work_dir: str, *, device=None, seed: int = 0, resume: Optional[st
                 step_s=step_s)
 
 
-def _finish_profile(prof_stack, dev, log) -> None:
-    """Stop the profiler (its trace goes to ``<work_dir>/trace/trace.json``)
-    and log the card's memory, as the JAX trainer does; returns None for
-    ``prof``."""
+def _finish_profile(prof_stack, prof, dev, log, steps: int) -> None:
+    """Stop the profiler (its trace goes to ``<work_dir>/trace/trace.json``,
+    the loader workers' spans in it), turn tracing off, log what the port
+    recorded a profiled step and, on the card, its idle share and the part
+    of it outside every port span, and log the card's memory, as the JAX
+    trainer does; returns None for ``prof``."""
     prof_stack.close()
+    profiling.enable(False)
+    _log_port_record(log, profiling.per_unit(profiling.drain(), steps))
+    if dev.type == "cuda":
+        idle = profiling.idle_attribution(prof.events())
+        log.info("device idle %.1f%% of the profiled %.3f s, %.1f%% of it in no port span",
+                 100 * idle["idle_s"] / max(idle["stretch_s"], 1e-9), idle["stretch_s"],
+                 100 * idle["unattributed_s"] / max(idle["idle_s"], 1e-9))
     mem = profiling.device_memory_stats(dev)
     if mem:
         log.info("device memory: %.0f MiB in use, %.0f MiB peak", mem["bytes_in_use"] / 2**20,
                  mem["peak_bytes_in_use"] / 2**20)
     return None
+
+
+def _log_port_record(log, got: dict) -> None:
+    """The profiled steps' spans and counters (``profiling.per_unit``), a
+    step: the main process's stages, the loader workers' scene, the host's
+    reads of the card by site, the bytes each way, and the scenes ready
+    when the step asked for them."""
+    c = got["counts"]
+
+    def by_site(key, scale=1.0):
+        return ", ".join(f"{k[len(key) + 1:]} {v * scale:.4g}" for k, v in c.items()
+                         if k.startswith(key + "."))
+
+    log.info("port spans, ms a step over %d profiled: %s", got["units"],
+             ", ".join(f"{k} {v:.1f}" for k, v in got["stages_ms"].items()))
+    if got["worker_scenes"]:
+        log.info("loader workers: %.1f ms a scene over %d scenes", got["worker_scene_ms"],
+                 got["worker_scenes"])
+    log.info("a step: %.4g host syncs (%s), %.4g MB to the host (%s), %.4g MB to the card, "
+             "%.4g of %.4g scenes ready when asked", c.get("host_syncs", 0),
+             by_site("host_syncs"), c.get("d2h_bytes", 0) / 1e6, by_site("d2h_bytes", 1e-6),
+             c.get("h2d_bytes", 0) / 1e6, c.get("loader.ready", 0), c.get("loader.asked", 0))
 
 
 def state_digest(state) -> str:
@@ -431,7 +470,9 @@ def main(argv=None) -> None:
                     help="data worker processes (default: the config's, or 0)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace the first N steps with torch.profiler into "
-                         "<work_dir>/trace/trace.json")
+                         "<work_dir>/trace/trace.json, with the port's spans and the "
+                         "loader workers' scenes, and log their stages, host syncs and "
+                         "bytes a step")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 

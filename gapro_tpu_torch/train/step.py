@@ -22,6 +22,7 @@ import torch
 
 from ..losses.criterion import (CriterionConfig, PointwiseTargets, build_targets,
                                 corner_labels_only, isbnet_loss, match)
+from ..utils import profiling
 
 
 def _no_mark(name: str) -> None:
@@ -51,20 +52,25 @@ def _loss_fn(model, prepared, crit_cfg: CriterionConfig, assign=None, mark=_no_m
     Returns ``(loss, (losses, aux))``; ``aux`` holds the ``outputs``, the
     ``targets`` and the assignment used (``assign``, or the matcher's; None
     with ``semantic_only``). ``mark`` is called after the forward and after
-    targets and matching."""
+    targets and matching. Spans ``step.targets``, ``step.match`` and
+    ``step.loss``."""
     b = prepared.batch
     outputs = model(b)
     mark("forward")
     if crit_cfg.semantic_only:
-        targets = PointwiseTargets(corner_labels_only(
-            prepared.voxel_instance, b.coords_float, b.valid, crit_cfg.inst_cap))
+        with profiling.span("step.targets"):
+            targets = PointwiseTargets(corner_labels_only(
+                prepared.voxel_instance, b.coords_float, b.valid, crit_cfg.inst_cap))
         assign = None
     else:
-        targets = _targets(prepared, outputs, crit_cfg.inst_cap)
+        with profiling.span("step.targets"):
+            targets = _targets(prepared, outputs, crit_cfg.inst_cap)
         if assign is None:
-            assign = match(outputs, targets)
+            with profiling.span("step.match"):
+                assign = match(outputs, targets)
     mark("targets")
-    losses = isbnet_loss(outputs, prepared, targets, crit_cfg, assign=assign)
+    with profiling.span("step.loss"):
+        losses = isbnet_loss(outputs, prepared, targets, crit_cfg, assign=assign)
     return losses["loss"], (losses, dict(outputs=outputs, targets=targets, assign=assign))
 
 
@@ -76,12 +82,15 @@ def _spformer_loss_fn(model, prepared, crit_cfg, assign=None, mark=_no_mark):
     outputs = model(prepared.batch)
     mark("forward")
     # point-resolution label pooling, as the model pools its features
-    targets = _targets(prepared, outputs, crit_cfg.inst_cap,
-                       vox_weights=prepared.batch.vox_npoints, pool=model.cfg.pool)
+    with profiling.span("step.targets"):
+        targets = _targets(prepared, outputs, crit_cfg.inst_cap,
+                           vox_weights=prepared.batch.vox_npoints, pool=model.cfg.pool)
     if assign is None:
-        assign = spformer_match_layers(outputs, targets, crit_cfg)
+        with profiling.span("step.match"):
+            assign = spformer_match_layers(outputs, targets, crit_cfg)
     mark("targets")
-    losses = spformer_loss(outputs, targets, crit_cfg, assign=assign)
+    with profiling.span("step.loss"):
+        losses = spformer_loss(outputs, targets, crit_cfg, assign=assign)
     return losses["loss"], (losses, dict(outputs=outputs, targets=targets, assign=assign))
 
 
@@ -92,9 +101,11 @@ def _make_step(loss_fn, model, crit_cfg, on_stage) -> Callable:
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         loss, (losses, _) = loss_fn(model, prepared, crit_cfg, mark=mark)
-        loss.backward()
+        with profiling.span("step.backward"):
+            loss.backward()
         mark("backward")
-        state = state.apply_gradients(lr=lr)
+        with profiling.span("step.optimizer"):
+            state = state.apply_gradients(lr=lr)
         mark("optimizer")
         return state, {k: v.detach() for k, v in losses.items()}
 
@@ -106,7 +117,8 @@ def make_train_step(model, crit_cfg: CriterionConfig,
     """Single-device ISBNet step: ``(state, prepared, lr) -> (state,
     losses)``, the losses detached. ``on_stage(name)``, if given, is called
     as each stage ends: ``forward``, ``targets`` (targets and matching),
-    ``backward`` and ``optimizer``."""
+    ``backward`` and ``optimizer``. Spans: the model's, ``_loss_fn``'s,
+    ``step.backward`` and ``step.optimizer``."""
     return _make_step(_loss_fn, model, crit_cfg, on_stage)
 
 
@@ -138,7 +150,8 @@ def make_dp_train_step(model, crit_cfg, group, loss_fn=_loss_fn,
     pack_point_batch_np``) into the rank's prepared batch, so each rank
     voxelizes and plans its own scene. ``on_stage`` is called as in
     ``make_train_step``, with ``prepare`` first where ``prepare_fn`` is
-    given and ``reduce`` after ``backward``."""
+    given and ``reduce`` after ``backward``; spans as ``make_train_step``'s,
+    with ``step.reduce``."""
     mark = on_stage or _no_mark
 
     def step(state, shard, lr, weight=1.0):
@@ -149,29 +162,33 @@ def make_dp_train_step(model, crit_cfg, group, loss_fn=_loss_fn,
             prepared = prepare_fn(shard)
             mark("prepare")
         loss, (losses, _) = loss_fn(model, prepared, crit_cfg, mark=mark)
-        loss.backward()
+        with profiling.span("step.backward"):
+            loss.backward()
         mark("backward")
-        params = [p for g in state.optimizer.param_groups for p in g["params"]]
-        stats = [b for b in model.buffers() if b.is_floating_point()]
-        keys = sorted(losses)
-        w = torch.tensor([float(weight)], device=group.device)
-        flat = torch.cat(
-            [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in params]
-            + [b.reshape(-1) for b in stats]
-            + [torch.stack([losses[k].detach().float().reshape(()) for k in keys])]) * w
-        flat = group.all_reduce_sum(torch.cat([flat, w]))
-        flat = flat[:-1] / flat[-1:].clamp(min=1e-6)
-        at = 0
-        with torch.no_grad():
-            for p in params:
-                p.grad = flat[at:at + p.numel()].view_as(p)
-                at += p.numel()
-            for b in stats:
-                b.copy_(flat[at:at + b.numel()].view_as(b))
-                at += b.numel()
-        reduced = {k: flat[at + i] for i, k in enumerate(keys)}
+        with profiling.span("step.reduce"):
+            params = [p for g in state.optimizer.param_groups for p in g["params"]]
+            stats = [b for b in model.buffers() if b.is_floating_point()]
+            keys = sorted(losses)
+            w = torch.tensor([float(weight)], device=group.device)
+            flat = torch.cat(
+                [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                 for p in params]
+                + [b.reshape(-1) for b in stats]
+                + [torch.stack([losses[k].detach().float().reshape(()) for k in keys])]) * w
+            flat = group.all_reduce_sum(torch.cat([flat, w]))
+            flat = flat[:-1] / flat[-1:].clamp(min=1e-6)
+            at = 0
+            with torch.no_grad():
+                for p in params:
+                    p.grad = flat[at:at + p.numel()].view_as(p)
+                    at += p.numel()
+                for b in stats:
+                    b.copy_(flat[at:at + b.numel()].view_as(b))
+                    at += b.numel()
+            reduced = {k: flat[at + i] for i, k in enumerate(keys)}
         mark("reduce")
-        state = state.apply_gradients(lr=lr)
+        with profiling.span("step.optimizer"):
+            state = state.apply_gradients(lr=lr)
         mark("optimizer")
         return state, reduced
 

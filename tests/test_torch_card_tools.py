@@ -11,7 +11,7 @@ file imports no JAX, so that the card's machine, which has none, runs it:
   checkpoints of ISBNet and SPFormer through ``convert_torch_ckpt``'s CLI,
   loaded by ``load_model_weights``, and one request each through the
   kernels, held against the plain versions;
-* ``device_memory_stats``'s keys on the card.
+* ``device_memory_stats``'s keys on the card, and ``to_host``'s counts.
 """
 
 import numpy as np
@@ -98,3 +98,22 @@ def test_device_memory_stats_on_the_card(card):
     assert list(mem) == ["bytes_in_use", "peak_bytes_in_use", "bytes_limit", "bytes_reserved"]
     assert mem["peak_bytes_in_use"] >= mem["bytes_in_use"] >= x.numel() * 4
     assert mem["bytes_limit"] > mem["bytes_reserved"] > 0
+
+
+@pytest.mark.gpu
+def test_to_host_counts_the_card_reads(card):
+    """``profiling.to_host`` reads a card tensor back and counts the read
+    and its bytes, in all and by site; off, it counts nothing."""
+    x = torch.arange(1000, dtype=torch.float32, device=card)
+    profiling.enable(True)
+    try:
+        profiling.drain()
+        assert torch.equal(profiling.to_host(x, "a"), x.cpu())
+        profiling.to_host(x[:10].int(), "b")
+        counts = profiling.drain()["counts"]
+    finally:
+        profiling.enable(False)
+    assert counts == {"host_syncs": 2, "host_syncs.a": 1, "host_syncs.b": 1,
+                      "d2h_bytes": 4040, "d2h_bytes.a": 4000, "d2h_bytes.b": 40}
+    profiling.to_host(x, "a")
+    assert profiling.drain()["counts"] == {}

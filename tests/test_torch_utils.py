@@ -2,7 +2,8 @@
 
 ``ScalarWriter``'s records equal the JAX package's (the wall clock
 aside), ``AverageMeter`` and ``get_logger`` behave as JAX's, ``trace``
-writes a Chrome trace with the annotated regions, and
+writes a Chrome trace with the port's spans as ranges (the rest of the
+tracing: ``tests/test_torch_tracing.py``), and
 ``device_memory_stats`` has the JAX names (empty without a card; the
 card's test is in ``tests/test_torch_card_tools.py``).
 """
@@ -65,14 +66,19 @@ def test_get_logger_file_handler(tmp_path):
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.trace(str(tmp_path / "trace")) as prof:
-        for step in range(2):
-            with profiling.step_annotation(step), profiling.annotate("matmul"):
-                torch.ones(64, 64) @ torch.ones(64, 64)
+    profiling.enable(True)
+    try:
+        with profiling.trace(str(tmp_path / "trace")) as prof:
+            for _ in profiling.units(range(2)):
+                with profiling.span("matmul"):
+                    torch.ones(64, 64) @ torch.ones(64, 64)
+    finally:
+        profiling.enable(False)
     assert prof is not None
+    assert [s.unit for s in profiling.drain()["spans"]] == [0, 1]
     events = json.load(open(tmp_path / "trace" / profiling.TRACE_FILE))["traceEvents"]
-    names = {e.get("name") for e in events}
-    assert {"matmul", "train step 0", "train step 1"} <= names
+    names = [e.get("name") for e in events]
+    assert names.count("gapro.matmul") == 2 and profiling.ANCHOR in names
 
 
 def test_device_memory_stats_without_a_card(monkeypatch):

@@ -10,7 +10,10 @@
 * ``SyntheticDataset``: fabricated rooms, for machines without the data.
 * ``build_dataloader``: shuffles, applies ``transform_train`` /
   ``transform_test`` and collates with ``models/prepare.py:
-  points_to_batch_np`` into bucketed point batches.
+  points_to_batch_np`` into bucketed point batches: one pass that casts
+  each scene straight into the batch's padded fields, and ranks each
+  scene's superpoint ids through a table of the ids present where they
+  are dense (a sort where they are sparse).
 * ``build_rank_loader``: one data-parallel rank's scene of each of
   ``build_dataloader``'s training batches, loading only that scene.
 

@@ -1,11 +1,12 @@
 """Point cloud -> voxel batch (``gapro_tpu/models/prepare.py``).
 
-``points_to_batch_np`` is the host collate (numpy). ``prepare_voxel_batch``
-runs on the device: voxelize by sort + unique, mean-pool features, take
-labels from the first point, compact superpoint ids and build the U-Net
-plan. ``pack_point_batch_np`` / ``unpack_point_batch`` carry one scene in
-one [N, 17] buffer, the data-parallel step's input, and ``packed_prepare``
-is that step's ``prepare_fn``.
+``points_to_batch_np`` is the host collate (numpy, one pass into the
+batch's padded fields). ``prepare_voxel_batch`` runs on the device:
+voxelize by sort + unique, mean-pool features, take labels from the first
+point, compact superpoint ids and build the U-Net plan.
+``pack_point_batch_np`` / ``unpack_point_batch`` carry one scene in one
+[N, 17] buffer, the data-parallel step's input, and ``packed_prepare`` is
+that step's ``prepare_fn``.
 """
 
 from __future__ import annotations
@@ -43,61 +44,108 @@ class PointBatch(NamedTuple):
     var: object  # [N]
 
 
+# A scene's superpoint ids are ranked through a table of the ids present
+# where their range is at most this many times its point count, else sorted.
+_SPP_TABLE_SPAN = 4
+
+
+def _compact_spp(spp: np.ndarray, out: np.ndarray, offset: int, scratch: np.ndarray) -> int:
+    """Write each id's rank among the scene's distinct ids (``np.unique``'s
+    inverse) plus ``offset`` into ``out``; return the number of distinct
+    ids. Dense integer ids mark a table over [min, max], whose running sum
+    is the rank (counted ``collate.spp_dense``); sparse or huge ids take
+    the sort (``collate.spp_sorted``). ``scratch`` is int64, at least as
+    long as ``spp``."""
+    n = len(spp)
+    if spp.dtype.kind in "iu" and n:
+        lo, hi = spp.min(), spp.max()
+        span = int(hi) - int(lo) + 1
+        if span <= _SPP_TABLE_SPAN * n:
+            idx = np.subtract(spp, lo, out=scratch[:n], casting="unsafe")  # in [0, span)
+            present = np.zeros(span, bool)
+            present[idx] = True
+            rank = np.cumsum(present, dtype=np.int32)
+            rank += offset - 1
+            np.take(rank, idx, out=out, mode="clip")  # idx is in range
+            profiling.count("collate.spp_dense")
+            return int(rank[-1]) + 1 - offset
+    _, inverse = np.unique(spp, return_inverse=True)
+    np.add(inverse, offset, out=out, casting="unsafe")
+    profiling.count("collate.spp_sorted")
+    return int(inverse.max()) + 1
+
+
 def points_to_batch_np(scenes, voxel_scale=50, n_cap=None) -> PointBatch:
     """Host collate: list of per-scene dicts (xyz, rgb, spp and optional
     semantic/instance/prob/mu/var) -> padded numpy PointBatch. Coords are
     floor(xyz * scale) shifted to min 0 per scene, batch index in column 0,
-    superpoint ids offset per scene."""
-    coords_l, cf_l, rgb_l, spp_l, sem_l, inst_l = [], [], [], [], [], []
-    prob_l, mu_l, var_l = [], [], []
-    spp_offset = 0
-    inst_offset = 0
-    for b, sc in enumerate(scenes):
-        xyz = np.asarray(sc["xyz"], np.float32)
-        n = len(xyz)
-        if "xyz_scaled" in sc:
-            c = np.floor(np.asarray(sc["xyz_scaled"], np.float64)).astype(np.int64)
-        else:
-            c = np.floor(xyz * voxel_scale).astype(np.int64)
-        c -= c.min(0)
-        coords_l.append(np.concatenate([np.full((n, 1), b, np.int64), c[:, ::-1]], axis=1))
-        cf_l.append(xyz)
-        rgb_l.append(np.asarray(sc["rgb"], np.float32))
-        _, spp_c = np.unique(np.asarray(sc["spp"]), return_inverse=True)
-        spp_l.append(spp_c + spp_offset)
-        spp_offset += spp_c.max() + 1
-        sem = np.asarray(sc.get("semantic", np.full(n, -100)), np.int32)
-        inst = np.asarray(sc.get("instance", np.full(n, -100)), np.int32).copy()
-        if inst.max() >= 0:
-            inst[inst >= 0] += inst_offset
-            inst_offset = int(inst.max()) + 1
-        sem_l.append(sem)
-        inst_l.append(inst)
-        prob_l.append(np.asarray(sc.get("prob", np.ones(n)), np.float32))
-        mu_l.append(np.asarray(sc.get("mu", np.full(n, -100.0)), np.float32))
-        var_l.append(np.asarray(sc.get("var", np.full(n, -100.0)), np.float32))
+    superpoint ids offset per scene.
 
-    coords = np.concatenate(coords_l, 0)
-    n_total = len(coords)
+    One pass: the capacity comes from the scenes' lengths, each field is
+    allocated once at it in its final dtype with the padding written only
+    into the tail, and each scene is cast straight into its rows. A
+    scene's coordinates are quantised an axis at a time through int64
+    (``xyz_scaled`` floored in float64, else ``xyz * voxel_scale`` in
+    float32's arithmetic). Its superpoint ids become their ranks among its
+    distinct ids (``_compact_spp``), offset by the distinct ids of the
+    scenes before it; instance ids >= 0 are shifted past the previous
+    scenes' largest. Field for field equal to the JAX package's
+    concatenate-and-pad collate."""
+    lens = [len(sc["xyz"]) for sc in scenes]
+    n_total = sum(lens)
     cap = n_cap or next_bucket(n_total)
-    pad = cap - n_total
+    if cap < n_total:
+        raise ValueError(f"{n_total} points do not fit a capacity of {cap}")
 
-    def padded(lst, fill=0):
-        x = np.concatenate(lst, 0)
-        return np.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1), constant_values=fill)
+    def field(shape, dtype, fill):
+        a = np.empty((cap,) + tuple(shape), dtype)
+        a[n_total:] = fill
+        return a
 
-    return PointBatch(
-        coords=np.pad(coords, [(0, pad), (0, 0)], constant_values=-1).astype(np.int32),
-        coords_float=padded(cf_l),
-        feats=padded(rgb_l),
-        spp=padded(spp_l, -1).astype(np.int32),
-        valid=np.arange(cap) < n_total,
-        semantic=padded(sem_l, -100),
-        instance=padded(inst_l, -100),
-        prob=padded(prob_l),
-        mu=padded(mu_l, -100.0),
-        var=padded(var_l, -100.0),
-    )
+    pb = PointBatch(
+        coords=field((4,), np.int32, -1), coords_float=field((3,), np.float32, 0),
+        feats=field(np.shape(scenes[0]["rgb"])[1:], np.float32, 0),
+        spp=field((), np.int32, -1), valid=field((), bool, False),
+        semantic=field((), np.int32, -100), instance=field((), np.int32, -100),
+        prob=field((), np.float32, 0), mu=field((), np.float32, -100.0),
+        var=field((), np.float32, -100.0))
+    pb.valid[:n_total] = True
+    product = np.empty(max(lens))
+    scratch = np.empty(max(lens), np.int64)
+    o = spp_offset = inst_offset = 0
+    for b, (sc, n) in enumerate(zip(scenes, lens)):
+        rows = slice(o, o + n)
+        xyz = pb.coords_float[rows]
+        xyz[:] = sc["xyz"]
+        coords = pb.coords[rows]
+        coords[:, 0] = b
+        scaled = np.asarray(sc["xyz_scaled"]) if "xyz_scaled" in sc else None
+        c = scratch[:n]
+        for axis in range(3):  # x, y, z -> columns 3, 2, 1
+            if scaled is not None:
+                np.floor(scaled[:, axis], out=c, dtype=np.float64, casting="unsafe")
+            else:
+                np.floor(np.multiply(xyz[:, axis], voxel_scale, out=product[:n]), out=c,
+                         casting="unsafe")
+            np.subtract(c, c.min(), out=coords[:, 3 - axis], casting="unsafe")
+        pb.feats[rows] = sc["rgb"]
+        spp_offset += _compact_spp(np.asarray(sc["spp"]), pb.spp[rows], spp_offset, scratch)
+        pb.semantic[rows] = sc.get("semantic", -100)
+        inst = pb.instance[rows]
+        inst[:] = sc.get("instance", -100)
+        top = int(inst.max())
+        if top >= 0:
+            if inst_offset:
+                shift = np.greater_equal(inst, 0, out=c)
+                shift *= inst_offset
+                inst += shift
+                top = int(inst.max())
+            inst_offset = top + 1
+        pb.prob[rows] = sc.get("prob", 1.0)
+        pb.mu[rows] = sc.get("mu", -100.0)
+        pb.var[rows] = sc.get("var", -100.0)
+        o += n
+    return pb
 
 
 class PreparedBatch(NamedTuple):

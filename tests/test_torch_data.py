@@ -92,12 +92,14 @@ def _batches(mod, num_workers, training):
 @pytest.mark.parametrize("num_workers,training", [(0, True), (2, True), (2, False)])
 def test_dataloader_matches_jax(num_workers, training):
     """The same batches as the JAX package's serial loader, in the same
-    order, from the serial path and from two forked workers."""
+    order, from the serial path and from two forked workers; each field of
+    the point batches in the same dtype."""
     got, want = _batches(dataset, num_workers, training), _batches(jax_dataset, 0, training)
     assert len(got) == len(want) == (3 if training else 6)
     for g, w in zip(got, want):
         assert g.scan_ids == w.scan_ids and g.batch_size == w.batch_size
         for name, a, b in zip(w.points._fields, g.points, w.points):
+            assert a.dtype == b.dtype, name
             np.testing.assert_array_equal(a, b, err_msg=name)
         for a, b in zip(g.scenes, w.scenes):
             _assert_scenes_equal(a, b)

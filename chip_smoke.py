@@ -3063,16 +3063,15 @@ def s3dis_serve(model, cfg, room: dict, dev):
     from gapro_tpu_torch.tools import train as port_train
 
     stamps = [time.perf_counter()]
+    ms = {}
 
-    def stage():
+    def stage(name):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        ms[name] = (stamps[-1] - stamps[-2]) * 1e3
 
     prepared, out, inst = port_test.serve_room(model, cfg, room, port_train.make_prepare(cfg, dev),
                                                cfg.data.voxel.scale, "s3dis_room", stage)
-    stage()
-    ms = {k: (stamps[i + 1] - stamps[i]) * 1e3
-          for i, k in enumerate(("split and prepare", "forward", "instances"))}
     return prepared, out, inst, ms
 
 
@@ -3191,7 +3190,7 @@ def s3dis_phase(dev, root: str) -> dict:
     # The config's filter_bg_thresh (0.1) keeps a superpoint whose pooled
     # semantics reach it in any class but the last (clutter): with semantics
     # equal to the labels, every voxel that holds a point not of clutter.
-    perm = port_test.split_room(rooms[0], scale)[2]
+    perm = port_test.split_room(rooms[0], scale)[1]
     kept = torch.from_numpy(labels0[perm] != ISBNET_S3DIS["model"]["semantic_classes"] - 1)
     p2v = prepared.point2voxel[:len(perm)].cpu()[kept]
     n_kept = int(torch.unique(p2v[p2v >= 0]).numel())

@@ -16,8 +16,9 @@ masks cross to the host bit-packed.
 S3DIS (``TestConfig.sem2ins_classes``): each of those classes (ceiling and
 floor) is one more instance of confidence 1, ahead of the NMS instances,
 taken from the devoxelized semantic argmax and aligned to the superpoints
-by a majority of at least half. ``TestConfig.x4_split`` is read by the
-test CLI, which serves an S3DIS room in 4 interleaved pieces.
+by a majority of at least half (span ``instances.sem2ins``).
+``TestConfig.x4_split`` is read by the test CLI, which serves an S3DIS
+room in 4 interleaved pieces.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 from ..core.bucketing import next_bucket
 from ..core.segment import segment_mean, segment_sum
 from ..ops.nms import matrix_nms, stable_topk
+from ..utils import profiling
 from ..utils.rle import rle_encode, rle_encode_rows
 
 
@@ -153,10 +155,11 @@ def get_instances(scan_id: str, outputs: dict, batch, point_spp: np.ndarray,
     point_spp_c = torch.as_tensor(point_spp_c, device=dev)
     instances = []
     if cfg.sem2ins_classes:
-        masks = sem2ins_masks(outputs["semantic_scores"], point2voxel, point_spp_c, n_pspp,
-                              n_points, cfg.sem2ins_classes)
-        instances = [dict(scan_id=scan_id, label_id=c + 1, conf=1.0, pred_mask=rle)
-                     for c, rle in zip(cfg.sem2ins_classes, rle_encode_rows(masks))]
+        with profiling.span("instances.sem2ins"):
+            masks = sem2ins_masks(outputs["semantic_scores"], point2voxel, point_spp_c, n_pspp,
+                                  n_points, cfg.sem2ins_classes)
+            instances = [dict(scan_id=scan_id, label_id=c + 1, conf=1.0, pred_mask=rle)
+                         for c, rle in zip(cfg.sem2ins_classes, rle_encode_rows(masks))]
     refined, _, keep, scores, cls_ids = isbnet_postprocess(
         outputs, batch.spp, batch.valid, point2voxel.int(), point_spp_c,
         next_bucket(max(n_pspp, 1), min_size=128), cfg)

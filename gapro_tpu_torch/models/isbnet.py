@@ -89,7 +89,9 @@ class VoxelBatch:
     """Voxel-level model inputs (static shapes).
 
     feats [V, 3] rgb; coords_float [V, 3]; batch_idx/valid [V]; spp [V]
-    compact global superpoint ids (-1 invalid); plan: UNetPlan.
+    compact global superpoint ids (-1 invalid); plan: UNetPlan;
+    ovf_spp_ids: the superpoint ids past ``n_spp``, which the segment ops
+    drop (an ``ovf_*`` counter, known on the host).
     """
 
     feats: torch.Tensor
@@ -101,6 +103,7 @@ class VoxelBatch:
     batch_size: int
     n_spp: int
     vox_npoints: Optional[torch.Tensor] = None
+    ovf_spp_ids: int = 0
 
 
 class ISBNet(nn.Module):

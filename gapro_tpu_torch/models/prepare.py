@@ -208,14 +208,15 @@ def prepare_voxel_batch(pb: PointBatch, voxel_cap: int, batch_size: int,
     """Voxelize a device PointBatch and build its U-Net plan; runs where the
     tensors of ``pb`` lie (see ``upload_point_batch``). Spans
     ``prepare.voxelize`` (the voxels and their features and labels) and
-    ``prepare.plan``."""
+    ``prepare.plan``. The voxels' superpoint ids past ``spp_cap`` are counted
+    in the batch's ``ovf_spp_ids``."""
     with profiling.span("prepare.voxelize"):
         maps = voxelize(pb.coords, EXTENTS, voxel_cap, valid=pb.valid)
         rgb = voxel_feats_mean(pb.feats, maps.point2voxel, voxel_cap)
         coords_float = voxel_feats_mean(pb.coords_float, maps.point2voxel, voxel_cap)
         label = lambda v: torch.where(maps.valid_voxel, voxel_gather_first(v, maps), -100)
-        _, spp_compact, _ = compact_unique(voxel_gather_first(pb.spp, maps), spp_cap,
-                                           valid=maps.valid_voxel)
+        _, spp_compact, n_spp_ids = compact_unique(voxel_gather_first(pb.spp, maps), spp_cap,
+                                                   valid=maps.valid_voxel)
         labels = dict(voxel_semantic=label(pb.semantic), voxel_instance=label(pb.instance),
                       voxel_prob=voxel_gather_first(pb.prob, maps),
                       voxel_mu=voxel_gather_first(pb.mu, maps),
@@ -230,7 +231,7 @@ def prepare_voxel_batch(pb: PointBatch, voxel_cap: int, batch_size: int,
     batch = VoxelBatch(
         feats=rgb, coords_float=coords_float, batch_idx=batch_idx, valid=maps.valid_voxel,
         spp=spp_compact, plan=plan, batch_size=batch_size, n_spp=spp_cap,
-        vox_npoints=vox_npoints)
+        vox_npoints=vox_npoints, ovf_spp_ids=max(n_spp_ids - spp_cap, 0))
     return PreparedBatch(batch=batch, point2voxel=maps.point2voxel, voxel_rgb=rgb, **labels)
 
 

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from .. import cuda_build
+from ..utils import profiling
 
 
 def _finish(idx, valid, n_sample):
@@ -129,7 +130,14 @@ def _max_active_clusters(n: int) -> int:
 
 def fps_cuda(xyz, valid, n_sample: int):
     """K4: ``fps_masked`` as one CUDA launch of one thread-block cluster per
-    batch item, on the item's valid points compacted by ``compact_valid``."""
+    batch item, on the item's valid points compacted by ``compact_valid``.
+    Counter ``fps.spill_points``: the points of the launch's shape past its
+    clusters' on-chip capacity, ``B * max(N - on_chip, 0)``, which the
+    kernel reads from global memory at every step (from the shapes alone:
+    the plain version on the CPU counts what the kernel would spill)."""
+    if profiling.enabled():
+        b, n = xyz.shape[:2]
+        profiling.count("fps.spill_points", b * max(n - launch_shape(n)["on_chip"], 0))
     if xyz.device.type == "cpu":
         return fps_masked(xyz, valid, n_sample)
     b, n, three = xyz.shape

@@ -15,10 +15,12 @@ the instances with ``ScanNetEval``: AP, and for SPFormer also box AP, as
 the reference does. On S3DIS (``data.type``) the labels are S3DIS's and
 mCov, mWCov, mPrec and mRec follow (``S3DISEval``); with the test
 section's ``x4_split`` an ISBNet serves each room as 4 interleaved pieces
-(``S3DISDataset.split_pieces``) in one batch, and each mask is put back
-into the room's point order. Without a checkpoint the weights are drawn
-from ``--seed``. ``--save_pointwise DIR`` (ISBNet) writes each scene's
-point-wise heads as the reference's viewers read them (``save_pointwise``).
+(``S3DISDataset.split_pieces``) in one batch, whose points are put back
+into the room's order before the instance stage builds each mask. A scene
+whose ``ovf_*`` counters (``overflows``) read data dropped is logged as a
+warning. Without a checkpoint the weights are drawn from ``--seed``.
+``--save_pointwise DIR`` (ISBNet) writes each scene's point-wise heads as
+the reference's viewers read them (``save_pointwise``).
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ from ..eval.s3dis_eval import S3DISEval
 from ..models.prepare import points_to_batch_np
 from ..train.checkpoint import load_model_weights
 from ..train.config import load_config
-from ..utils.rle import rle_decode, rle_encode
+from ..utils import profiling
+from ..utils.rle import rle_decode
 from .train import build_dataset, build_model, make_prepare
 
 
@@ -93,9 +96,12 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
+        ovf = {k: v for k, v in overflows(prepared, outputs).items() if v}
+        if ovf:
+            log.warning("%s: capacities exceeded, data dropped: %s", scan_id, ovf)
         if pointwise and model_type == "isbnet":
             if x4:
-                perm = split_room(scene, dataset.voxel_cfg.scale)[2]
+                perm = split_room(scene, dataset.voxel_cfg.scale)[1]
             save_pointwise(pointwise, scan_id, outputs, prepared.point2voxel, n_points, perm)
         log.info("%s: %d pts, %d instances, %.3fs", scan_id, n_points, len(insts), times[-1])
         all_preds.append(insts)
@@ -132,42 +138,60 @@ X4_PIECES = 4
 
 def split_room(scene, voxel_scale):
     """An S3DIS room as x4_split serves it: the point batch of its
-    ``X4_PIECES`` interleaved pieces (``S3DISDataset.split_pieces``), their
-    superpoint ids in the batch's point order, and the room's index of each
-    of those points."""
-    pieces = S3DISDataset.split_pieces(scene, X4_PIECES)
-    return (points_to_batch_np(pieces, voxel_scale=voxel_scale),
-            np.concatenate([p["spp"] for p in pieces]),
-            np.concatenate([p["piece_indices"] for p in pieces]))
+    ``X4_PIECES`` interleaved pieces (``S3DISDataset.split_pieces``) and the
+    room's index of each of the batch's points. Span ``x4.split``; counter
+    ``x4.room_points``."""
+    with profiling.span("x4.split"):
+        profiling.count("x4.room_points", len(scene["xyz"]))
+        pieces = S3DISDataset.split_pieces(scene, X4_PIECES)
+        return (points_to_batch_np(pieces, voxel_scale=voxel_scale),
+                np.concatenate([p["piece_indices"] for p in pieces]))
+
+
+def overflows(prepared, outputs) -> dict:
+    """A request's ``ovf_*`` counters: the outputs' and ``prepare``'s
+    ``ovf_spp_ids`` (superpoint ids past ``spp_cap``, which the model never
+    sees), each an int."""
+    ovf = {k: int(v) for k, v in outputs.items() if k.startswith("ovf_")}
+    ovf["ovf_spp_ids"] = prepared.batch.ovf_spp_ids
+    return ovf
 
 
 def serve_room(model, cfg, room, prepare, voxel_scale, scan_id: str = "room", stage=None):
     """Serve one S3DIS room as x4_split does: ``split_room`` -> ``prepare``
     of its ``X4_PIECES`` pieces -> ISBNet's ``forward_inference(x4_split=True)``
-    -> ``get_instances`` under the config's test section -> each mask back
-    in the room's point order. ``stage()``, when given, is called after the
-    prepare and after the forward (a timer's hook). Returns the prepared
-    batch, the outputs and the instance records."""
-    points, spp, perm = split_room(room, voxel_scale)
+    -> the points put back into the room's order (``room_point2voxel``) ->
+    ``get_instances`` under the config's test section, each mask in the
+    room's point order. ``stage(name)``, when given, is called at the end of
+    each of the stages ``split``, ``prepare``, ``forward``, ``merge`` and
+    ``instances`` (a timer's hook). Returns the prepared batch, the outputs
+    and the instance records."""
+    mark = stage or (lambda name: None)
+    points, perm = split_room(room, voxel_scale)
+    mark("split")
     prepared = prepare(points, X4_PIECES)
-    if stage:
-        stage()
+    mark("prepare")
     outputs = model.forward_inference(prepared.batch, x4_split=True)
-    if stage:
-        stage()
-    insts = infer_scene_instances("isbnet", outputs, prepared.batch, spp, prepared.point2voxel,
+    mark("forward")
+    point2voxel = room_point2voxel(prepared.point2voxel, perm)
+    mark("merge")
+    insts = infer_scene_instances("isbnet", outputs, prepared.batch, room["spp"], point2voxel,
                                   len(perm), scan_id, cfg.get("test", {}))
-    to_room_order(insts, perm)
+    mark("instances")
     return prepared, outputs, insts
 
 
-def to_room_order(instances, perm) -> None:
-    """Put each instance's mask, in the pieces' point order, back into the
-    room's (``perm``: the room's index of each point), in place."""
-    inv = np.empty_like(perm)
-    inv[perm] = np.arange(len(perm))
-    for inst in instances:
-        inst["pred_mask"] = rle_encode(rle_decode(inst["pred_mask"])[inv])
+def room_point2voxel(point2voxel, perm):
+    """The voxel of each of the room's points in the room's order: the x4
+    batch's ``point2voxel``, in the pieces' order (``perm``: the room's
+    index of each of its points), taken through the inverse permutation
+    where it lies. The instance stage then builds and encodes each mask in
+    the room's order, the records that decoding each mask, permuting it and
+    encoding it again would give. Span ``x4.merge``."""
+    with profiling.span("x4.merge"):
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+        return point2voxel[torch.as_tensor(inv, device=point2voxel.device)]
 
 
 def save_pointwise(out_dir: str, scan_id: str, outputs, point2voxel, n_points: int,

@@ -161,10 +161,16 @@ class PreparedBatch(NamedTuple):
 
 def upload_point_batch(pb: PointBatch, device=None) -> PointBatch:
     """numpy PointBatch -> tensors on ``device`` (``cuda`` unless named);
-    the span ``prepare.upload``, its bytes under ``h2d_bytes``."""
+    the span ``prepare.upload``, its bytes under ``h2d_bytes``. A batch
+    whose tensors already lie on ``device`` (the x4 split's) is passed
+    through and counted under ``prepare.on_device``."""
     dev = resolve_device(device)
+    if all(isinstance(a, torch.Tensor) and a.device.type == dev.type
+           and dev.index in (None, a.device.index) for a in pb):
+        profiling.count("prepare.on_device")
+        return pb
     with profiling.span("prepare.upload"):
-        host = [torch.as_tensor(np.asarray(a)) for a in pb]
+        host = [a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a)) for a in pb]
         if dev.type != "cpu":
             profiling.count("h2d_bytes", sum(t.numel() * t.element_size() for t in host))
         return PointBatch(*(t.to(dev) for t in host))

@@ -15,10 +15,10 @@ the instances with ``ScanNetEval``: AP, and for SPFormer also box AP, as
 the reference does. On S3DIS (``data.type``) the labels are S3DIS's and
 mCov, mWCov, mPrec and mRec follow (``S3DISEval``); with the test
 section's ``x4_split`` an ISBNet serves each room as 4 interleaved pieces
-(``S3DISDataset.split_pieces``) in one batch, whose points are put back
-into the room's order before the instance stage builds each mask. A scene
-whose ``ovf_*`` counters (``overflows``) read data dropped is logged as a
-warning. Without a checkpoint the weights are drawn from ``--seed``.
+(``S3DISDataset.split_pieces``, split on the device) in one batch, whose
+points are put back into the room's order before the instance stage
+builds each mask. A scene whose ``ovf_*`` counters (``overflows``) read
+data dropped is logged as a warning. Without a checkpoint the weights are drawn from ``--seed``.
 ``--save_pointwise DIR`` (ISBNet) writes each scene's point-wise heads as
 the reference's viewers read them (``save_pointwise``).
 """
@@ -36,12 +36,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.dataset import S3DISDataset, build_dataloader
+from ..core.bucketing import next_bucket
+from ..data.dataset import build_dataloader
 from ..device import resolve_device
 from ..eval.instance_eval import S3DIS_INSTANCE_CLASSES, SCANNET_INSTANCE_CLASSES, ScanNetEval
 from ..eval.runner import infer_scene_instances, make_infer_fn
 from ..eval.s3dis_eval import S3DISEval
-from ..models.prepare import points_to_batch_np
+from ..models.prepare import PointBatch
 from ..train.checkpoint import load_model_weights
 from ..train.config import load_config
 from ..utils import profiling
@@ -101,7 +102,7 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
             log.warning("%s: capacities exceeded, data dropped: %s", scan_id, ovf)
         if pointwise and model_type == "isbnet":
             if x4:
-                perm = split_room(scene, dataset.voxel_cfg.scale)[1]
+                perm = split_room(scene, dataset.voxel_cfg.scale, dev)[1]
             save_pointwise(pointwise, scan_id, outputs, prepared.point2voxel, n_points, perm)
         log.info("%s: %d pts, %d instances, %.3fs", scan_id, n_points, len(insts), times[-1])
         all_preds.append(insts)
@@ -136,16 +137,96 @@ def run_test(cfg, checkpoint: Optional[str] = None, *, device=None, seed: int = 
 X4_PIECES = 4
 
 
-def split_room(scene, voxel_scale):
+# The room's per-point fields the split reads, uploaded once in the room's order.
+_ROOM_FIELDS = ("xyz", "xyz_scaled", "rgb", "spp", "semantic", "instance", "prob", "mu", "var")
+
+
+def split_room(scene, voxel_scale, device="cpu"):
     """An S3DIS room as x4_split serves it: the point batch of its
-    ``X4_PIECES`` interleaved pieces (``S3DISDataset.split_pieces``) and the
-    room's index of each of the batch's points. Span ``x4.split``; counter
+    ``X4_PIECES`` interleaved pieces and the room's index of each of the
+    batch's points (``perm``), both on ``device``. The room's fields are
+    uploaded once (``h2d_bytes``); there a stable sort of x dealt
+    round-robin gives the pieces, and the batch is gathered from the room
+    field for field as ``points_to_batch_np`` collates
+    ``S3DISDataset.split_pieces``. Span ``x4.split``; counter
     ``x4.room_points``."""
     with profiling.span("x4.split"):
-        profiling.count("x4.room_points", len(scene["xyz"]))
-        pieces = S3DISDataset.split_pieces(scene, X4_PIECES)
-        return (points_to_batch_np(pieces, voxel_scale=voxel_scale),
-                np.concatenate([p["piece_indices"] for p in pieces]))
+        n = len(scene["xyz"])
+        profiling.count("x4.room_points", n)
+        dev = torch.device(device)
+        room = {k: torch.as_tensor(np.asarray(scene[k])) for k in _ROOM_FIELDS if k in scene}
+        if dev.type != "cpu":
+            profiling.count("h2d_bytes", sum(t.numel() * t.element_size() for t in room.values()))
+            room = {k: t.to(dev) for k, t in room.items()}
+        # +0.0 makes -0.0 a plain 0.0, equal to it as numpy's sort holds it
+        order = torch.sort(room["xyz"][:, 0] + 0.0, stable=True).indices
+        perm = torch.cat([order[p::X4_PIECES] for p in range(X4_PIECES)])
+        return _piece_batch(room, perm, voxel_scale), perm
+
+
+def _piece_batch(room: dict, perm, voxel_scale) -> PointBatch:
+    """The padded ``PointBatch`` of the room's points taken in ``perm``'s
+    order, as ``X4_PIECES`` pieces of ``ceil((n - p) / X4_PIECES)`` points
+    each; where ``perm`` lies, with no read on the host."""
+    n, dev = len(perm), perm.device
+    lens = [(n - p + X4_PIECES - 1) // X4_PIECES for p in range(X4_PIECES)]
+    starts = [sum(lens[:p]) for p in range(X4_PIECES)]
+    rows = [slice(s, s + k) for s, k in zip(starts, lens)]
+    piece = torch.empty(n, dtype=torch.long, device=dev)
+    for p, r in enumerate(rows):
+        piece[r] = p
+    cap = next_bucket(n)
+
+    def take(k, dtype, default=None):  # the room's field in perm's order, or the default
+        if k not in room:
+            return torch.full((n,), default, dtype=dtype, device=dev)
+        return room[k][perm].to(dtype)
+
+    def field(values, pad, dtype):
+        out = torch.full((cap,) + tuple(values.shape[1:]), pad, dtype=dtype, device=dev)
+        out[:n] = values
+        return out
+
+    xyz = take("xyz", torch.float32)
+    # floor per axis (xyz_scaled in float64, else xyz * scale in float32),
+    # shifted to each piece's minimum; (x, y, z) -> columns 3, 2, 1
+    q = (room["xyz_scaled"][perm] if "xyz_scaled" in room else xyz * voxel_scale).floor().long()
+    for r in rows:
+        q[r] -= q[r].amin(0)
+    coords = torch.cat([piece[:, None], q.flip(1)], 1)
+
+    # each superpoint id's rank among its piece's distinct ids, offset by the
+    # distinct ids of the pieces before it: a sort within each piece, a new
+    # rank at each piece's start and at each change of id
+    spp = room["spp"][perm]
+    at = torch.empty(n, dtype=torch.long, device=dev)
+    ordered = torch.empty_like(spp)
+    new = torch.ones(n, dtype=torch.bool, device=dev)
+    for s, r in zip(starts, rows):
+        values, i = torch.sort(spp[r])
+        ordered[r] = values
+        at[r] = i + s
+    new[1:] = (ordered[1:] != ordered[:-1]) | (piece[1:] != piece[:-1])
+    ranks = torch.empty(n, dtype=torch.long, device=dev)
+    ranks[at] = new.cumsum(0) - 1
+
+    # instance ids >= 0 shifted past the previous pieces' largest
+    instance = take("instance", torch.int32, -100)
+    top = torch.stack([instance[r].amax() for r in rows]).long()
+    grow = torch.where(top >= 0, top + 1, 0)
+    instance = instance + (grow.cumsum(0) - grow)[piece] * (instance >= 0)
+
+    valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+    valid[:n] = True
+    return PointBatch(
+        coords=field(coords, -1, torch.int32), coords_float=field(xyz, 0, torch.float32),
+        feats=field(take("rgb", torch.float32), 0, torch.float32),
+        spp=field(ranks, -1, torch.int32), valid=valid,
+        semantic=field(take("semantic", torch.int32, -100), -100, torch.int32),
+        instance=field(instance, -100, torch.int32),
+        prob=field(take("prob", torch.float32, 1.0), 0, torch.float32),
+        mu=field(take("mu", torch.float32, -100.0), -100.0, torch.float32),
+        var=field(take("var", torch.float32, -100.0), -100.0, torch.float32))
 
 
 def overflows(prepared, outputs) -> dict:
@@ -158,16 +239,17 @@ def overflows(prepared, outputs) -> dict:
 
 
 def serve_room(model, cfg, room, prepare, voxel_scale, scan_id: str = "room", stage=None):
-    """Serve one S3DIS room as x4_split does: ``split_room`` -> ``prepare``
-    of its ``X4_PIECES`` pieces -> ISBNet's ``forward_inference(x4_split=True)``
-    -> the points put back into the room's order (``room_point2voxel``) ->
+    """Serve one S3DIS room as x4_split does: ``split_room`` on the model's
+    device -> ``prepare`` of its ``X4_PIECES`` pieces -> ISBNet's
+    ``forward_inference(x4_split=True)`` -> the points put back into the
+    room's order (``room_point2voxel``) ->
     ``get_instances`` under the config's test section, each mask in the
     room's point order. ``stage(name)``, when given, is called at the end of
     each of the stages ``split``, ``prepare``, ``forward``, ``merge`` and
     ``instances`` (a timer's hook). Returns the prepared batch, the outputs
     and the instance records."""
     mark = stage or (lambda name: None)
-    points, perm = split_room(room, voxel_scale)
+    points, perm = split_room(room, voxel_scale, next(model.parameters()).device)
     mark("split")
     prepared = prepare(points, X4_PIECES)
     mark("prepare")
@@ -185,13 +267,21 @@ def room_point2voxel(point2voxel, perm):
     """The voxel of each of the room's points in the room's order: the x4
     batch's ``point2voxel``, in the pieces' order (``perm``: the room's
     index of each of its points), taken through the inverse permutation
-    where it lies. The instance stage then builds and encodes each mask in
-    the room's order, the records that decoding each mask, permuting it and
-    encoding it again would give. Span ``x4.merge``."""
+    (``_in_room_order``). The instance stage then builds and encodes each
+    mask in the room's order, the records that decoding each mask,
+    permuting it and encoding it again would give. Span ``x4.merge``."""
     with profiling.span("x4.merge"):
-        inv = np.empty_like(perm)
-        inv[perm] = np.arange(len(perm))
-        return point2voxel[torch.as_tensor(inv, device=point2voxel.device)]
+        return _in_room_order(point2voxel, perm)
+
+
+def _in_room_order(values, perm):
+    """``values`` of the pieces' points in the room's order: the inverse of
+    ``perm`` (a tensor on any device, or an array), built by a scatter
+    where ``values`` lie, gathers them."""
+    perm = torch.as_tensor(perm, device=values.device)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(len(perm), device=values.device)
+    return values[inv]
 
 
 def save_pointwise(out_dir: str, scan_id: str, outputs, point2voxel, n_points: int,
@@ -201,15 +291,11 @@ def save_pointwise(out_dir: str, scan_id: str, outputs, point2voxel, n_points: i
     point), ``offset_pred/<scan>.npy`` (float32 [n, 3], the centre of the
     predicted box) and ``offset_vertices_pred/<scan>.npy`` (float32 [n, 6],
     the box's corner offsets), each point taking its voxel's. ``perm`` (the
-    x4_split path: the room's index of each point of the pieces) puts the
-    points back into the room's order."""
-    p2v = point2voxel[:n_points].long()
+    x4_split path: the room's index of each point of the pieces, a tensor
+    on any device) puts the points back into the room's order."""
+    p2v = (point2voxel[:n_points] if perm is None else _in_room_order(point2voxel, perm)).long()
     sem = outputs["semantic_scores"].argmax(1)[p2v].cpu().numpy().astype(np.int32)
     corners = outputs["corners_offset"][p2v].cpu().numpy().astype(np.float32)
-    if perm is not None:
-        inv = np.empty_like(perm)
-        inv[perm] = np.arange(len(perm))
-        sem, corners = sem[inv], corners[inv]
     for sub, arr in (("semantic_pred", sem),
                      ("offset_pred", ((corners[:, :3] + corners[:, 3:]) / 2).astype(np.float32)),
                      ("offset_vertices_pred", corners)):
